@@ -21,3 +21,10 @@ import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_num_cpu_devices", 8)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA device (the port's hand-written kernels); skips without one",
+    )
