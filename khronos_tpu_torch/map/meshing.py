@@ -13,11 +13,12 @@ are drained in another round. The emission buffer keeps the reference's
 12-word quantised triangle layout; words are uint32 bit patterns held in
 int32 (read them with `.view(np.uint32)` on the host).
 
-One deliberate difference: the reference writes `cell_meshed` back for
-every compacted slot, and its padding slots all alias cell (0, 0, 0) with
-that cell's old value, so a taken cell (0, 0, 0) can be overwritten by a
-padding write depending on scatter order. Here only the cells actually
-emitted (`done`) are written, which is order-free.
+`cell_meshed` is written back as the reference writes it: every compacted
+slot writes its cell, `True` if emitted and the old value if not, and the
+padding slots all alias cell (0, 0, 0) with its old value. In slot order the
+last write to a cell wins (the reference's serial scatter on the CPU), so a
+taken cell (0, 0, 0) stays unmeshed whenever a padding slot follows it. The
+port computes that outcome explicitly, not through CUDA's scatter order.
 
 Triangle winding is not globally consistent (normals unused downstream).
 """
@@ -229,10 +230,15 @@ def _extract_device(
     counts = valid_flat.sum(dim=1)
     fits = torch.cumsum(counts, 0) <= tri_capacity
     done = taken & fits
-    # write only the emitted cells (padding slots go to a dropped extra cell)
+    # every other cell has at most one slot: its emitted write lands as is (the
+    # rest go to a dropped extra cell). Cell (0, 0, 0) takes the write of the
+    # last slot aliasing it, in slot order: True if that slot emitted it,
+    # else its old value.
     n_cells = CX * CY * CZ
     meshed_flat = torch.cat([state.cell_meshed[:-1, :-1, :-1].reshape(-1), done.new_zeros(1)])
-    meshed_flat[torch.where(done, safe_ids, n_cells)] = True
+    meshed_flat[torch.where(done & (safe_ids != 0), safe_ids, n_cells)] = True
+    last = torch.where(safe_ids == 0, torch.arange(C, device=dev), -1).max()
+    meshed_flat[0] |= done[last.clamp_min(0)] & (last >= 0)
     cell_meshed = state.cell_meshed.clone()
     cell_meshed[:-1, :-1, :-1] = meshed_flat[:n_cells].view(CX, CY, CZ)
     n_emitted = done.sum(dtype=torch.int32)

@@ -39,6 +39,7 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 # C entry points: name -> argtypes (restype is always int = cudaError_t)
 SIGNATURES = {
+    "khr_propagate": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "khr_propagate_round": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "khr_gather_rows": (_P, _P, _P, _L, _I, _L, _P),
 }

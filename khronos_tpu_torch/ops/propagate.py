@@ -3,11 +3,12 @@
 
 `propagate_labels_3d` computes exactly `khronos_tpu/ops/dense.py::
 propagate_labels_3d`, bit for bit. A CUDA tensor goes to the hand-written
-kernel `csrc/propagate.cu` (one launch per round, ping-pong buffers; see the
-note there); a CPU tensor goes to `propagate_labels_3d_plain`. There is no
+kernel `csrc/propagate.cu` (all rounds in one cooperative launch, over tiles
+with a halo, active tiles only, stopping at the fixpoint; see the note
+there); a CPU tensor goes to `propagate_labels_3d_plain`. There is no
 fallback from one to the other.
 
-`launches` counts kernel launches (one per round, one for iterations == 0).
+`launches` counts kernel launches: one per call.
 """
 
 from __future__ import annotations
@@ -18,6 +19,10 @@ from khronos_tpu_torch.ops import native
 from khronos_tpu_torch.ops.dense import max_pool3
 
 launches = 0
+
+TILE = (8, 4, 26)  # csrc/propagate.cu: the tile interior (TX, TY, TZ = 32 - 2 D)
+DEPTH = 3  # csrc/propagate.cu: rounds between two barriers (D)
+WS_ROUNDS, WS_HEADER = 96, 128  # workspace words: rounds run; then the tile marks
 
 
 def propagate_labels_3d_plain(
@@ -57,36 +62,44 @@ def propagate_labels_3d_cuda(
     labels: torch.Tensor, growable: torch.Tensor, iterations: int
 ) -> torch.Tensor:
     """Kernel A on CUDA tensors (raises on anything else)."""
+    return launch(labels, growable, iterations)[0]
+
+
+def n_tiles(shape) -> int:
+    """Tiles of csrc/propagate.cu's tile shape that cover a grid."""
+    n = 1
+    for s, t in zip(shape, TILE):
+        n *= -(-s // t)
+    return n
+
+
+def launch(labels: torch.Tensor, growable: torch.Tensor, iterations: int):
+    """Kernel A's one launch: (out, workspace), the workspace being the
+    kernel's int32 words on the device: `workspace[WS_ROUNDS]` holds the
+    rounds run and, when iterations > 0, `workspace[WS_HEADER:][:n_tiles]`
+    marks the tiles holding a growable cell. Nothing here waits for the
+    device."""
     global launches
     _check(labels, growable)
     if not labels.is_cuda:
         raise ValueError("propagate_labels_3d_cuda needs CUDA tensors")
     if not (labels.is_contiguous() and growable.is_contiguous()):
         raise ValueError("propagate_labels_3d_cuda needs contiguous tensors")
-    lib = native.load_library()
-    grow = growable.view(torch.uint8)
-    X, Y, Z = labels.shape
     if labels.numel() >= 2**31:
         raise ValueError("propagate_labels_3d: grid too large for int32 cell counts")
+    lib = native.load_library()
+    X, Y, Z = labels.shape
+    tiles = n_tiles(labels.shape)
     out = torch.empty_like(labels)
-    stream = torch.cuda.current_stream(labels.device).cuda_stream
-    if iterations <= 0:
-        native.check(
-            lib.khr_propagate_round(labels.data_ptr(), grow.data_ptr(), out.data_ptr(), X, Y, Z, 0, 0, stream),
-            "khr_propagate_round",
-        )
-        launches += 1
-        return out
     tmp = torch.empty_like(labels)
-    src = labels
-    for k in range(iterations):
-        dst = out if (iterations - 1 - k) % 2 == 0 else tmp
-        native.check(
-            lib.khr_propagate_round(
-                src.data_ptr(), grow.data_ptr(), dst.data_ptr(), X, Y, Z, 1, int(k == 0), stream
-            ),
-            "khr_propagate_round",
-        )
-        launches += 1
-        src = dst
-    return out
+    ws = torch.empty(WS_HEADER + 2 * tiles, dtype=torch.int32, device=labels.device)
+    stream = torch.cuda.current_stream(labels.device).cuda_stream
+    native.check(
+        lib.khr_propagate(
+            labels.data_ptr(), growable.view(torch.uint8).data_ptr(), out.data_ptr(), tmp.data_ptr(),
+            ws.data_ptr(), X, Y, Z, tiles, max(int(iterations), 0), stream,
+        ),
+        "khr_propagate",
+    )
+    launches += 1
+    return out, ws

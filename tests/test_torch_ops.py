@@ -19,6 +19,8 @@ from khronos_tpu_torch.ops import dense as td
 from khronos_tpu_torch.ops import gather as tg
 from khronos_tpu_torch.ops import propagate as tp
 
+from test_torch_kernels_cuda import FAMILIES, ODD_ITERATIONS, ODD_SHAPES, expected_rounds, propagate_case
+
 SHAPE = (20, 16, 12)
 
 
@@ -100,6 +102,128 @@ class TestDense:
         got = td.propagate_labels_keyed_3d(
             torch.from_numpy(lab), torch.from_numpy(key), torch.from_numpy(grow), iterations).numpy()
         np.testing.assert_array_equal(want, got)
+
+
+def _schedule_model(labels, grow, iterations, tile=tp.TILE, depth=tp.DEPTH, blocks=3, seed=0):
+    """A model, in PyTorch on the CPU, of csrc/propagate.cu's schedule: (out,
+    rounds run). Phase 0 marks the tiles holding a growable cell and writes
+    the others as -1 into `out`; each step loads every marked tile plus a
+    halo `depth` cells deep, masked as loaded, runs up to `depth` rounds on
+    that region (the 3-wide max along z, y, then x, then the mask; the
+    region's faces go wrong a cell deeper each round, and never reach the
+    tile), writes the tile into the step's ping-pong buffer and
+    notes which rounds changed a cell of it; the steps stop after one with a
+    round that changed nothing. `out` and `tmp` start as garbage, as
+    torch.empty leaves them."""
+    X, Y, Z = labels.shape
+    ny, nz = -(-Y // tile[1]), -(-Z // tile[2])
+    n_tiles = -(-X // tile[0]) * ny * nz
+    gen = torch.Generator().manual_seed(seed)
+    out = torch.randint(-9, 99, labels.shape, generator=gen, dtype=torch.int32)
+    tmp = torch.randint(-9, 99, labels.shape, generator=gen, dtype=torch.int32)
+
+    def corner(t):
+        return t // (nz * ny) * tile[0], t // nz % ny * tile[1], t % nz * tile[2]
+
+    def cells(t):  # the tile's slices, clipped at the grid border
+        return tuple(slice(o, min(o + n, s)) for o, n, s in zip(corner(t), tile, (X, Y, Z)))
+
+    def pool(a, axis):  # 3-wide max along one axis; at the region's faces a cell stands in for its missing neighbour
+        n = a.shape[axis]
+        p = torch.cat([a.narrow(axis, 0, 1), a, a.narrow(axis, n - 1, 1)], axis)
+        return torch.maximum(torch.maximum(p.narrow(axis, 0, n), p.narrow(axis, 1, n)), p.narrow(axis, 2, n))
+
+    marked = []
+    for t in range(n_tiles):
+        sl = cells(t)
+        if iterations == 0:
+            out[sl] = torch.where(grow[sl], labels[sl], -1)
+        elif not bool(grow[sl].any()):
+            out[sl] = -1
+        else:
+            marked.append(t)
+    if iterations == 0 or not marked:
+        return out, 0
+    steps = -(-iterations // depth)
+    buf = [tmp, out] if (steps - 1) % 2 else [out, tmp]  # the last step writes out
+    rounds = 0
+    for step in range(steps):
+        h = min(depth, iterations - step * depth)
+        src = labels if step == 0 else buf[(step - 1) % 2]
+        dst = buf[step % 2]
+        bits = 0
+        for b in range(blocks):  # each block its own tiles
+            for t in marked[b::blocks]:
+                region = torch.full([n + 2 * depth for n in tile], -1, dtype=torch.int32)
+                m = torch.zeros(region.shape, dtype=torch.bool)
+                lo = [o - depth for o in corner(t)]
+                gs = tuple(slice(max(a, 0), min(a + r, n)) for a, r, n in zip(lo, region.shape, (X, Y, Z)))
+                rs = tuple(slice(g.start - a, g.stop - a) for g, a in zip(gs, lo))
+                region[rs] = torch.where(grow[gs], src[gs], -1)
+                m[rs] = grow[gs]
+                inner = tuple(slice(depth, depth + n) for n in tile)
+                for r in range(h):
+                    new = torch.where(m, pool(pool(pool(region, 2), 1), 0), -1)
+                    bits |= int(bool((new[inner] != region[inner]).any())) << r
+                    region = new
+                sl = cells(t)
+                dst[sl] = region[inner][tuple(slice(0, c.stop - c.start) for c in sl)]
+        rounds += h
+        if step == steps - 1:
+            break
+        if bits != (1 << h) - 1:  # a round changed nothing: the fixpoint
+            if dst is not out:
+                for t in marked:
+                    out[cells(t)] = dst[cells(t)]
+            break
+    return out, rounds
+
+
+class TestKernelSchedule:
+    """csrc/propagate.cu cannot run on the CPU: its schedule is rehearsed
+    here, bit for bit against the plain version and the JAX function."""
+
+    @pytest.mark.parametrize("family", FAMILIES)
+    @pytest.mark.parametrize("shape", ODD_SHAPES)
+    def test_model_matches_plain_and_jax(self, shape, family):
+        lab, grow = propagate_case(shape, family)
+        for iterations in ODD_ITERATIONS:
+            got, rounds = _schedule_model(lab, grow, iterations, seed=iterations)
+            want = tp.propagate_labels_3d_plain(lab, grow, iterations)
+            ref = np.asarray(jd.propagate_labels_3d(jnp.asarray(lab.numpy()), jnp.asarray(grow.numpy()), iterations))
+            np.testing.assert_array_equal(want.numpy(), ref, err_msg=f"{shape} {family} {iterations}")
+            np.testing.assert_array_equal(got.numpy(), ref, err_msg=f"{shape} {family} {iterations}")
+            assert rounds == expected_rounds(lab, grow, iterations), (shape, family, iterations)
+
+    @pytest.mark.parametrize("tile,depth", [((8, 8, 16), 2), ((3, 5, 7), 3), ((1, 1, 1), 1), ((4, 4, 8), 4)])
+    def test_model_any_tile_shape_and_depth(self, tile, depth):
+        """The schedule does not depend on the tile shape or the rounds per
+        step (the kernel's are tp.TILE and tp.DEPTH): ragged tiles, tiles of
+        one cell, halos deeper than the tile."""
+        lab, grow = _seeded(4, shape=(13, 11, 9), p_seed=0.02, p_grow=0.6)
+        lab, grow = torch.from_numpy(lab), torch.from_numpy(grow)
+        for iterations in (1, depth - 1, depth, depth + 1, 9):
+            got, rounds = _schedule_model(lab, grow, iterations, tile=tile, depth=depth, blocks=2)
+            assert torch.equal(got, tp.propagate_labels_3d_plain(lab, grow, iterations)), (tile, iterations)
+            assert rounds == expected_rounds(lab, grow, iterations, depth), (tile, depth, iterations)
+
+    @pytest.mark.parametrize("seed", [0, 1, 2])
+    def test_no_change_then_never_again(self, seed):
+        """The early exit's ground: the rounds only raise labels, and once a
+        round changes nothing, no later round changes anything."""
+        lab, grow = _seeded(20 + seed, p_seed=0.01, p_grow=0.35)
+        lab, grow = torch.from_numpy(lab), torch.from_numpy(grow)
+        cur = torch.where(grow, lab, -1)
+        settled = None
+        for k in range(80):
+            nxt = tp.propagate_labels_3d_plain(cur, grow, 1)
+            assert bool((nxt >= cur).all())
+            if settled is None and torch.equal(nxt, cur):
+                settled = k
+            if settled is not None:
+                assert torch.equal(nxt, cur), (settled, k)
+            cur = nxt
+        assert settled is not None and settled > 0
 
 
 def _raw_labels(seed, n_values):

@@ -160,11 +160,12 @@ def test_extract_mesh_host_pull(shared):
         np.testing.assert_array_equal(want[k], got[k], err_msg=k)
 
 
-def test_cell_origin_written_only_when_emitted():
-    """The port marks a taken cell (0, 0, 0) as meshed. The reference's
-    padding slots alias that cell and write its OLD value back after the
-    real write (serial scatter order on the CPU), so there it stays unmeshed
-    and re-emits every round: a quirk of the reference, not copied."""
+def test_cell_origin_write_back_matches_reference():
+    """cell_meshed after an emission round equals the reference's on the whole
+    grid, cell (0, 0, 0) included. That cell takes the write of the last slot
+    aliasing it: with padding slots after it (more capacity than cells) a
+    padding slot's old value, so a taken cell (0, 0, 0) stays unmeshed; with
+    no padding slot (capacity 1) the real write, so it is meshed."""
     cfg, js, ts = _mesh_state(9)
     shape = cfg.grid_shape
     tsdf = np.asarray(js.tsdf).copy()
@@ -174,12 +175,9 @@ def test_cell_origin_written_only_when_emitted():
     ts = tav.state_from_numpy([np.asarray(a) for a in js], device="cpu")
     only = np.zeros(tuple(s - 1 for s in shape), bool)
     only[0, 0, 0] = True
-    jcm, _, jmeta = jm._extract_device(js, jnp.asarray(only), cfg.voxel_size, 16, 1024)
-    tcm, _, tmeta = tm._extract_device(ts, torch.from_numpy(only), cfg.voxel_size, 16, 1024)
-    assert float(np.asarray(jmeta)[2]) == float(tmeta[2]) == 1.0  # one cell emitted
-    assert bool(tcm[0, 0, 0])
-    jcm = np.asarray(jcm)
-    assert not jcm[0, 0, 0]  # the reference's write-back (ROADMAP, faults)
-    other = np.ones(shape, bool)
-    other[0, 0, 0] = False
-    np.testing.assert_array_equal(jcm[other], tcm.numpy()[other])
+    for max_cells, origin_meshed in ((16, False), (1, True)):
+        jcm, _, jmeta = jm._extract_device(js, jnp.asarray(only), cfg.voxel_size, max_cells, 1024)
+        tcm, _, tmeta = tm._extract_device(ts, torch.from_numpy(only), cfg.voxel_size, max_cells, 1024)
+        assert float(np.asarray(jmeta)[2]) == float(tmeta[2]) == 1.0  # one cell emitted
+        np.testing.assert_array_equal(np.asarray(jcm), tcm.numpy(), err_msg=f"max_cells {max_cells}")
+        assert bool(tcm[0, 0, 0]) == origin_meshed
