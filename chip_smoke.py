@@ -40,9 +40,21 @@ Phases, in order; any failure raises and the run exits non-zero:
    tiles active), and beside the first port's design of it (one launch a
    round, kept as the yardstick), with
    the rounds it ran, its active tiles and the inputs' growable share;
-6. sweep: kernel A built and timed at other rounds per step and tile shapes
+6. backend_path: object extraction and the backend at the bench point over
+   a 24 s office run at 10 fps (two orbits) with drifted odometry
+   (drift_rate 0.1): every frame through ActiveWindow.spin_once, every output
+   through finalize_output (MeshObjectExtractor, G = 48, K = 24) and
+   Backend.add_output (GtLoopClosure, min gap 8 s, max distance 1 m), then
+   finish_mapping, finish_processing, get_dsg and save into build/. Asserts
+   A and B launched once a frame, a loop closure and a solve that moved
+   geometry, static objects with meshes and dynamic ones with trajectories, a
+   deformed background mesh, dsg.npz loading back equal; the port's backend
+   on the CPU fed the same outputs agrees with the card, and a second card
+   run is bit-identical; the extractor on the card and on the CPU agrees on
+   two static tracks. Times each of the slice's device functions alone;
+7. sweep: kernel A built and timed at other rounds per step and tile shapes
    (phase_sweep), the measurements behind the ones csrc/propagate.cu uses;
-7. prints the kernels line as JSON, then `{"ok": true, "device": ...}` last.
+8. prints the kernels line as JSON, then `{"ok": true, "device": ...}` last.
 
 With --profile PATH it also traces a few more frames with torch.profiler and
 writes the device time by kernel, the device operations per frame and the
@@ -52,6 +64,7 @@ device busy share to PATH.
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import math
 import statistics
@@ -214,6 +227,9 @@ def phase_main_path(profile_path):
     torch.cuda.synchronize()
     log(f"rendered {n_total} frames at 480x640 on the card in {time.perf_counter() - t0:.2f} s")
     aw = ActiveWindow(build(ActiveWindowConfig, bench_config()), seq.camera, syn.default_label_space())
+    # the per-frame work alone: object extraction waits for finalize_output,
+    # which the backend stage runs (phase_backend_path drives it)
+    aw.defer_object_extraction = True
 
     outputs = []
 
@@ -287,10 +303,11 @@ def phase_main_path(profile_path):
     if profile_path:
         profile(aw, run, frames[WARMUP + FRAMES + CAPTURED:], profile_path)
 
-    outputs.append(aw.finish_mapping(last))
+    outputs.append(aw.finish_mapping(last))  # extracts the last tracks inline
     n_tris = sum(len(o.mesh_vertices) for o in outputs)
     tracks = [t for o in outputs for t in (o.pending_tracks or [])]
     n_dyn = sum(t.is_dynamic for t in tracks)
+    n_objects = len(outputs[-1].objects)
     verts = np.concatenate([o.mesh_vertices for o in outputs])
     require(n_tris > 0 and np.isfinite(verts).all(), n_tris)
     require(n_dyn > 0, f"no dynamic track among {len(tracks)} finished tracks")
@@ -298,7 +315,8 @@ def phase_main_path(profile_path):
     require(tuple(state.tsdf.shape) == (160, 160, 48), f"volume shape {tuple(state.tsdf.shape)}")
     require(bool(torch.isfinite(state.tsdf).all() & torch.isfinite(state.color).all()),
             "non-finite tsdf or color in the volume")
-    log(f"mesh triangles {n_tris}, finished tracks {len(tracks)} ({n_dyn} dynamic)")
+    log(f"mesh triangles {n_tris}, finished tracks handed out {len(tracks)} ({n_dyn} dynamic), "
+        f"objects extracted at finish_mapping {n_objects}")
     return {
         "fps": FRAMES / dt,
         "ms_per_frame": dt / FRAMES * 1e3,
@@ -595,6 +613,454 @@ def phase_kernels(main):
     return results
 
 
+# ---- backend_path: object extraction and the backend over a drifted run ----
+
+BACKEND_SECONDS = 24.0  # 240 frames at 10 fps, two orbits: every frame after 12 s revisits
+DRIFT_RATE = 0.1  # odometry random walk (SyntheticSequence.odometry_pose)
+BACKEND_CONFIG = {"lcd": {"type": "GtLoopClosure", "min_time_gap": 8.0, "max_distance": 1.0}}
+# the card against the port's CPU path, with the tolerances that
+# tests/test_torch_backend.py and tests/test_torch_extraction.py state
+AGENT_ATOL = VERTEX_ATOL = 1e-3  # m
+EXTRACT_WEIGHT_SHARE, EXTRACT_TSDF_ATOL, EXTRACT_TRI_RTOL = 0.999, 1e-5, 0.01
+# the slice's device functions: (module, function)
+DEVICE_FUNCTIONS = (
+    ("active_window.object_extraction", "_reconstruct_device"),
+    ("active_window.object_extraction", "_mesh_small_grid"),
+    ("backend.factor_graph", "_linearize_and_solve"),
+    ("backend.factor_graph", "_weighted_error"),
+    ("backend.factor_graph", "_apply_delta"),
+    ("backend.factor_graph", "_between_errors"),
+    ("backend.deformation", "_deform_points"),
+)
+
+
+def _size(args) -> int:
+    """Elements in a call's tensor arguments (lists and tuples included)."""
+    total = 0
+    for a in args:
+        if torch.is_tensor(a):
+            total += a.numel()
+        elif isinstance(a, (list, tuple)):
+            total += _size(a)
+        elif hasattr(a, "__dataclass_fields__"):
+            total += _size(list(vars(a).values()))
+    return total
+
+
+def _shapes(args) -> list:
+    """The shapes of a call's tensor arguments, for the report."""
+    out = []
+    for a in args:
+        if torch.is_tensor(a):
+            out.append(list(a.shape))
+        elif isinstance(a, list):
+            out.append(f"{len(a)} items")
+        elif hasattr(a, "__dataclass_fields__"):
+            out.append({k: list(v.shape) for k, v in vars(a).items() if torch.is_tensor(v)})
+    return out
+
+
+class DeviceCalls:
+    """Counts the calls of the slice's device functions while installed and
+    keeps the arguments of the largest call of each, to time it alone."""
+
+    def __init__(self):
+        import importlib
+
+        self.calls = {name: 0 for _, name in DEVICE_FUNCTIONS}
+        self.largest = {}
+        self.counting = True  # off while a check calls them
+        self.first_ms = {}  # the first call of each, synchronized: first-use setup included
+        self._installed = []
+        for mod, name in DEVICE_FUNCTIONS:
+            module = importlib.import_module(f"khronos_tpu_torch.{mod}")
+            fn = getattr(module, name)
+
+            def counted(*args, _fn=fn, _name=name):
+                if not self.counting:
+                    return _fn(*args)
+                self.calls[_name] += 1
+                size = _size(args)
+                if size >= self.largest.get(_name, (-1, None))[0]:
+                    self.largest[_name] = (size, args)
+                if _name in self.first_ms:
+                    return _fn(*args)
+                ts = time.perf_counter()
+                out = _fn(*args)
+                torch.cuda.synchronize()
+                self.first_ms[_name] = (time.perf_counter() - ts) * 1e3
+                return out
+
+            setattr(module, name, counted)
+            self._installed.append((module, name, fn))
+
+    def uninstall(self) -> None:
+        for module, name, fn in self._installed:
+            setattr(module, name, fn)
+        self._installed = []
+
+
+def drive_window_and_backend(dataset, device, before_finalize=None) -> dict:
+    """The port's path from frames to a scene graph: every frame through
+    ActiveWindow.spin_once; every output through finalize_output (the object
+    extraction) and Backend.add_output with its ground-truth pose; then
+    finish_mapping, finish_processing and get_dsg. Outputs are recorded as
+    the backend received them, for replays."""
+    from khronos_tpu_torch.active_window.active_window import ActiveWindow, ActiveWindowConfig
+    from khronos_tpu_torch.backend.backend import Backend, BackendConfig
+    from khronos_tpu_torch.config import build
+    from khronos_tpu_torch.data import synthetic as syn
+
+    def sync():
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    items = list(dataset)  # rendered up front: the timed loop holds no rendering
+    sync()
+    render_s = time.perf_counter() - t0
+    aw = ActiveWindow(build(ActiveWindowConfig, bench_config()), dataset.camera, syn.default_label_space(),
+                      device=device)
+    aw.defer_object_extraction = True  # the backend stage extracts, in finalize_output
+    be = Backend(build(BackendConfig, BACKEND_CONFIG), device=device)
+    static_ms = []  # (ms, extracted) per static track
+    extract_static = aw.object_extractor._extract_static
+
+    def timed_static(track, buffer):
+        ts = time.perf_counter()
+        obj = extract_static(track, buffer)
+        static_ms.append(((time.perf_counter() - ts) * 1e3, obj is not None))
+        return obj
+
+    aw.object_extractor._extract_static = timed_static
+    solves = []  # (ms, iterations, nodes, between factors) per Backend.optimize
+    optimize = be.optimize
+
+    def timed_optimize():
+        ts = time.perf_counter()
+        res = optimize()
+        solves.append(((time.perf_counter() - ts) * 1e3, res.iterations, be.graph.num_nodes, be.graph.num_between))
+        return res
+
+    be.optimize = timed_optimize
+    records, finalize_ms, add_ms = [], [], []
+
+    def hand_off(out, gt):
+        if before_finalize is not None and out.pending_tracks:
+            before_finalize(aw, out)
+        ts = time.perf_counter()
+        had_tracks = bool(out.pending_tracks)
+        aw.finalize_output(out)
+        if had_tracks:
+            finalize_ms.append((time.perf_counter() - ts) * 1e3)
+        records.append((copy.deepcopy(out), gt))
+        ts = time.perf_counter()
+        be.add_output(out, gt_pose=gt)
+        add_ms.append((time.perf_counter() - ts) * 1e3)
+
+    spin_s = 0.0
+    for frame, gt in items:
+        ts = time.perf_counter()
+        out = aw.spin_once(frame)
+        spin_s += time.perf_counter() - ts
+        if out is not None:
+            hand_off(out, gt)
+    ts = time.perf_counter()
+    sync()
+    spin_s += time.perf_counter() - ts
+    ts = time.perf_counter()
+    last = aw.finish_mapping(items[-1][0])  # extracts inline
+    finish_mapping_ms = (time.perf_counter() - ts) * 1e3
+    hand_off(last, items[-1][1])
+    ts = time.perf_counter()
+    be.finish_processing()
+    finish_processing_ms = (time.perf_counter() - ts) * 1e3
+    ts = time.perf_counter()
+    dsg = be.get_dsg()
+    get_dsg_ms = (time.perf_counter() - ts) * 1e3
+    return {"aw": aw, "backend": be, "dsg": dsg, "records": records, "frames": len(items),
+            "render_s": render_s, "spin_s": spin_s, "finalize_ms": finalize_ms, "static_ms": static_ms,
+            "add_output_ms": add_ms, "solves": solves, "finish_mapping_ms": finish_mapping_ms,
+            "finish_processing_ms": finish_processing_ms, "get_dsg_ms": get_dsg_ms}
+
+
+def replay_backend(records, device):
+    """A new Backend on `device` fed the recorded outputs; (backend, dsg)."""
+    from khronos_tpu_torch.backend.backend import Backend, BackendConfig
+    from khronos_tpu_torch.config import build
+
+    be = Backend(build(BackendConfig, BACKEND_CONFIG), device=device)
+    for out, gt in records:
+        be.add_output(copy.deepcopy(out), gt_pose=gt)
+    be.finish_processing()
+    return be, be.get_dsg()
+
+
+def backend_summary(be, dsg) -> dict:
+    objs = list(dsg.objects.values())
+    return {"loop_closures": len(be.loop_closures), "solves": be.num_optimizations,
+            "skipped_consistent": be.optimizes_skipped_consistent, "geometry_epoch": dsg.opt_epoch,
+            "nodes": be.graph.num_nodes, "between_factors": be.graph.num_between,
+            "objects": len(objs), "static_objects": sum(not o.is_dynamic for o in objs),
+            "static_with_mesh": sum((not o.is_dynamic) and len(o.mesh_faces) > 0 for o in objs),
+            "dynamic_objects": sum(o.is_dynamic for o in objs),
+            "dynamic_with_trajectory": sum(len(o.trajectory_positions) > 1 for o in objs),
+            "object_triangles": sum(len(o.mesh_faces) for o in objs),
+            "mesh_vertices": dsg.mesh.num_vertices, "mesh_triangles": dsg.mesh.num_faces,
+            "outlier_mask": [bool(x) for x in be._opt_result.outlier_mask],
+            "validated_merges": [(p.from_id, p.into_id) for p in be.validated_merges()],
+            "proposed_merges": len(be.proposed_merges)}
+
+
+def scene_arrays(dsg) -> dict:
+    from khronos_tpu_torch.stm import serialization
+
+    return serialization.scene_graph_arrays(dsg)
+
+
+def check_extraction_card_vs_cpu(camera, config, checks, calls):
+    """A hook for drive_window_and_backend: before the first outputs'
+    extraction, rebuild the grids of their static tracks (at most two) with
+    MeshObjectExtractor on the card and on the CPU, from the same buffered
+    frames: weights and confidences equal on nearly every voxel, TSDF within
+    EXTRACT_TSDF_ATOL where they are, triangle counts within EXTRACT_TRI_RTOL."""
+    from khronos_tpu_torch.active_window import object_extraction as oe
+
+    extractors = {dev: oe.MeshObjectExtractor(config, camera, device=dev) for dev in ("cuda", "cpu")}
+
+    def hook(aw, out):
+        calls.counting = False
+        try:
+            compare(aw, out)
+        finally:
+            calls.counting = True
+
+    def compare(aw, out):
+        for track in out.pending_tracks:
+            if len(checks) >= 2 or track.is_dynamic:
+                continue
+            if track.confidence(config.min_num_observations) < config.min_object_allocation_confidence:
+                continue
+            got = {}
+            for dev, ext in extractors.items():
+                rec = ext.reconstruct(track, aw.frame_buffer)
+                if rec is None:
+                    break
+                _, _, origin, voxel, (tsdf, weight, conf) = rec
+                meta = oe._mesh_small_grid(tsdf, weight, origin, voxel, config.grid_size)[-1]
+                got[dev] = [x.cpu().numpy() for x in (tsdf, weight, conf, meta)]
+            if len(got) < 2:
+                continue
+            (tg, wg, cg, mg), (tc, wc, cc, mc) = got["cuda"], got["cpu"]
+            same = (wg == wc) & (cg == cc)
+            tsdf_err = float(np.abs(tg - tc)[same].max(initial=0.0))
+            tris = (int(mg[0]), int(mc[0]))
+            require(same.mean() >= EXTRACT_WEIGHT_SHARE, f"extraction: weights agree on {same.mean():.5f} of voxels")
+            require(tsdf_err <= EXTRACT_TSDF_ATOL, f"extraction: tsdf differs by {tsdf_err}")
+            require(abs(tris[0] - tris[1]) <= EXTRACT_TRI_RTOL * max(tris[1], 1), f"extraction: triangles {tris}")
+            checks.append({"track": track.track_id, "observations": len(track.observations),
+                           "voxels_equal_share": float(same.mean()), "tsdf_max_abs_err": tsdf_err,
+                           "triangles_card": tris[0], "triangles_cpu": tris[1]})
+
+    return hook
+
+
+def time_device_function(name, args) -> dict:
+    """One of the slice's device functions on the largest inputs the path gave
+    it: host wall time a call (with a synchronize; the path pays this), device
+    kernel time a call and kernels a call (torch.profiler), peak device
+    memory above what was allocated before the call."""
+    import importlib
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    mod = next(m for m, n in DEVICE_FUNCTIONS if n == name)
+    fn = getattr(importlib.import_module(f"khronos_tpu_torch.{mod}"), name)
+    fn(*args)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    wall = []
+    for _ in range(5):
+        ts = time.perf_counter()
+        fn(*args)
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - ts) * 1e3)
+    reps = 3
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn(*args)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return {"wall_ms": statistics.median(wall), "device_ms": sum(e.self_device_time_total for e in kernels) * 1e-3 / reps,
+            "kernels_per_call": sum(e.count for e in kernels) / reps, "peak_extra_mib": peak / 2**20}
+
+
+def device_function_bound(name, args) -> tuple:
+    """(ms, "bytes" or "operations") for the two larger device functions; the
+    bytes each input needs once and each output once, the operations at the
+    card's 32-bit rate outside the tensor cores."""
+    if name == "_reconstruct_device":
+        frames, camera, G = args[0], args[1], args[6]
+        K, cells = len(frames), G ** 3
+        # each frame's depth and object id of the pixels the cells project to
+        # (at most the whole image), the pose; tsdf, weight, confidence out
+        read = K * (min(camera.height * camera.width, cells) * 8 + 48)
+        write = 3 * cells * 4
+        ops = K * cells * 40  # projection, band tests and the running means, a cell and frame
+        t_bytes, t_ops = (read + write) / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    elif name == "_linearize_and_solve":
+        node_R, f = args[0], args[2]
+        n, factors = 6 * node_R.shape[0], f.b_i.shape[0] + f.p_i.shape[0]
+        # node poses and factors in, delta and error out; the Cholesky of the
+        # dense H and its two triangular solves
+        t_bytes = (node_R.shape[0] * 12 * 4 + factors * 26 * 4 + n * 4 + 4) / HBM_BYTES_PER_S
+        t_ops = (n ** 3 / 3 + 2 * n ** 2) / FP32_OPS_PER_S
+    else:
+        return None, None
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def phase_backend_path(card_name):
+    """Object extraction and the backend on the card, at the bench point, over
+    a drifted office run; held against the port's CPU path and a second card
+    run of the backend."""
+    from khronos_tpu_torch.data.datasets import SyntheticDataset
+    from khronos_tpu_torch.ops import gather, propagate
+    from khronos_tpu_torch.stm import serialization
+    from khronos_tpu_torch.utils.timing import TimingRecorder
+
+    dataset = SyntheticDataset("office", duration=BACKEND_SECONDS, fps=10.0, height=480, width=640,
+                               drift_rate=DRIFT_RATE, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    from khronos_tpu_torch.active_window.object_extraction import MeshObjectExtractorConfig
+    from khronos_tpu_torch.config import build
+
+    ext_checks = []
+    calls = DeviceCalls()
+    hook = check_extraction_card_vs_cpu(dataset.camera, build(MeshObjectExtractorConfig, {}), ext_checks, calls)
+    propagate.launches = 0
+    gather.launches = 0
+    recorder = TimingRecorder.instance()
+    recorder.reset()
+    t0 = time.perf_counter()
+    run = drive_window_and_backend(dataset, "cuda", before_finalize=hook)
+    wall_s = time.perf_counter() - t0
+    calls.uninstall()
+    # host time by the backend stage's Timer spans (children nest in parents)
+    spans = {r["name"]: {"calls": r["n_samples"], "total_ms": r["total_s"] * 1e3, "max_ms": r["max_s"] * 1e3}
+             for r in recorder.stats() if r["name"].startswith(("backend/", "object_extraction/"))}
+    launches = {"propagate": propagate.launches, "gather": gather.launches}
+    peak = torch.cuda.max_memory_allocated()
+    be, dsg, n = run["backend"], run["dsg"], run["frames"]
+    card = backend_summary(be, dsg)
+    require(n == int(BACKEND_SECONDS * 10), f"{n} frames")
+    # the fused step launches A and B once a frame (finish_mapping runs none)
+    require(launches == {"propagate": n, "gather": n}, f"not one launch a frame each: {launches}")
+    require(card["loop_closures"] >= 1, "no loop closure")
+    require(card["solves"] >= 1 and card["geometry_epoch"] > 0, f"no solve moved geometry: {card}")
+    require(card["static_with_mesh"] >= 1, f"no static object with a mesh: {card}")
+    require(card["dynamic_with_trajectory"] >= 1, f"no dynamic object with a trajectory: {card}")
+    require(len(ext_checks) == 2, f"extraction compared on {len(ext_checks)} static tracks")
+    raw = be.mesh_acc.build()
+    require(raw.num_vertices == dsg.mesh.num_vertices > 0, (raw.num_vertices, dsg.mesh.num_vertices))
+    moved = float(np.abs(dsg.mesh.vertices - raw.vertices).max())
+    require(moved > 0.0, "the deformed background mesh equals the raw one")
+    require(all(np.isfinite(a).all() for a in (dsg.mesh.vertices, dsg.agent_positions())), "non-finite output")
+    # save, and read back what was written
+    out_dir = Path(__file__).resolve().parent / "build" / "backend_path"
+    ts = time.perf_counter()
+    be.save(str(out_dir))
+    save_ms = (time.perf_counter() - ts) * 1e3
+    saved = scene_arrays(serialization.load_scene_graph(str(out_dir / "dsg.npz")))
+    want = scene_arrays(dsg)
+    require(saved.keys() == want.keys() and all(np.array_equal(saved[k], want[k]) for k in want),
+            "dsg.npz does not load back equal")
+
+    # the same recorded outputs: the port's backend on the CPU, and again on the card
+    ts = time.perf_counter()
+    cpu_be, cpu_dsg = replay_backend(run["records"], "cpu")
+    cpu_s = time.perf_counter() - ts
+    cpu = backend_summary(cpu_be, cpu_dsg)
+    for key in ("loop_closures", "solves", "objects", "mesh_vertices", "outlier_mask", "validated_merges",
+                "geometry_epoch"):
+        require(card[key] == cpu[key], f"card and CPU differ in {key}: {card[key]} vs {cpu[key]}")
+    agent_err = float(np.abs(dsg.agent_positions() - cpu_dsg.agent_positions()).max())
+    vertex_err = float(np.abs(dsg.mesh.vertices - cpu_dsg.mesh.vertices).max())
+    require(agent_err <= AGENT_ATOL and vertex_err <= VERTEX_ATOL, f"card vs CPU: agents {agent_err}, vertices {vertex_err}")
+    again_be, again_dsg = replay_backend(run["records"], "cuda")
+    again = scene_arrays(again_dsg)
+    require(backend_summary(again_be, again_dsg) == card, "a second card run of the backend differs in its counts")
+    require(again.keys() == want.keys() and all(np.array_equal(again[k], want[k]) for k in want),
+            "a second card run of the backend is not bit-identical")
+
+    # the slice's device functions alone, on the largest inputs the path gave them
+    functions = {}
+    for _, name in DEVICE_FUNCTIONS:
+        require(name in calls.largest, f"{name} never ran on the path")
+        args = calls.largest[name][1]
+        info = time_device_function(name, args)
+        info["calls"] = calls.calls[name]
+        info["shapes"] = _shapes(args)
+        info["first_call_ms"] = calls.first_ms[name]
+        info["bound_ms"], info["bound_by"] = device_function_bound(name, args)
+        functions[name] = info
+
+    solves = run["solves"]
+    static_ok = [ms for ms, ok in run["static_ms"] if ok]
+    result = {
+        "frames": n, "render_s": run["render_s"], "wall_s": wall_s,
+        "aw_fps": n / run["spin_s"], "aw_ms_per_frame": run["spin_s"] / n * 1e3,
+        "outputs": len(run["records"]),
+        "finalize_ms": {"calls_with_tracks": len(run["finalize_ms"]),
+                        "median": statistics.median(run["finalize_ms"]), "max": max(run["finalize_ms"]),
+                        "total": sum(run["finalize_ms"])},
+        "static_extraction_ms": {"tracks": len(run["static_ms"]), "extracted": len(static_ok),
+                                 "median_extracted": statistics.median(static_ok),
+                                 "total": sum(ms for ms, _ in run["static_ms"])},
+        "add_output_ms": {"median": statistics.median(run["add_output_ms"]), "max": max(run["add_output_ms"])},
+        "solves": [{"ms": ms, "iterations": it, "nodes": nn, "between_factors": nf} for ms, it, nn, nf in solves],
+        "finish_mapping_ms": run["finish_mapping_ms"], "finish_processing_ms": run["finish_processing_ms"],
+        "get_dsg_ms": run["get_dsg_ms"], "save_ms": save_ms, "peak_mib": peak / 2**20,
+        "launches": launches, "host_spans": spans, "summary": card, "cpu_replay_s": cpu_s,
+        "card_vs_cpu": {"agent_max_abs_err": agent_err, "vertex_max_abs_err": vertex_err},
+        "deformation_max_move_m": moved, "extraction_card_vs_cpu": ext_checks,
+        "device_functions": functions,
+    }
+    log(f"backend_path ({card_name}): {n} frames at 480x640 (drift {DRIFT_RATE}), active window {result['aw_fps']:.2f} frames/s "
+        f"({result['aw_ms_per_frame']:.2f} ms/frame host time of spin_once), {result['outputs']} outputs")
+    log(f"backend_path: finalize_output with tracks median {result['finalize_ms']['median']:.2f} ms "
+        f"(max {result['finalize_ms']['max']:.2f}); static extraction {len(static_ok)} of "
+        f"{len(run['static_ms'])} tracks extracted, median {result['static_extraction_ms']['median_extracted']:.2f} "
+        f"ms each; add_output median {result['add_output_ms']['median']:.2f} ms, max "
+        f"{result['add_output_ms']['max']:.2f} ms")
+    log("backend_path: host ms by span (calls, total, max): " + ", ".join(
+        f"{k} {v['calls']} / {v['total_ms']:.1f} / {v['max_ms']:.1f}" for k, v in spans.items()))
+    log("backend_path: solves " + ", ".join(f"{s['ms']:.1f} ms / {s['iterations']} iterations "
+                                             f"({s['nodes']} nodes, {s['between_factors']} factors)"
+                                             for s in result["solves"]))
+    log(f"backend_path: get_dsg {run['get_dsg_ms']:.2f} ms, save {save_ms:.1f} ms; {card['loop_closures']} loop "
+        f"closures, {card['objects']} objects ({card['static_objects']} static, {card['dynamic_objects']} dynamic), "
+        f"{card['mesh_triangles']} background triangles, {card['object_triangles']} object triangles; "
+        f"peak device memory {peak / 2**20:.1f} MiB; launches {launches}")
+    log(f"backend_path: card == CPU (counts, outlier masks, merges; agents {agent_err:.3g} m, vertices "
+        f"{vertex_err:.3g} m; CPU replay {cpu_s:.1f} s); a second card run bit-identical; extraction card vs CPU "
+        + "; ".join(f"track {c['track']}: {c['voxels_equal_share']:.5f} of voxels equal, tsdf {c['tsdf_max_abs_err']:.3g}, "
+                    f"triangles {c['triangles_card']} / {c['triangles_cpu']}" for c in ext_checks))
+    for name, info in functions.items():
+        bound = "" if info["bound_ms"] is None else f", bound {info['bound_ms'] * 1e3:.3f} us by {info['bound_by']}"
+        log(f"device function {name}: {info['calls']} calls (the first {info['first_call_ms']:.1f} ms), "
+            f"{info['wall_ms']:.3f} ms a call on the host clock, "
+            f"{info['device_ms']:.3f} ms device kernel time in {info['kernels_per_call']:.0f} kernels, "
+            f"peak +{info['peak_extra_mib']:.1f} MiB{bound}; largest inputs {info['shapes']}")
+    return result
+
+
 SWEEP = [(d, tx, ty) for d in (1, 2, 3, 4) for tx, ty in ((8, 8), (8, 4), (4, 8), (4, 4))]
 
 
@@ -680,13 +1146,15 @@ def main() -> int:
     main_path["frames"] = FRAMES
     # 5) kernels on the main path's inputs, timed
     kernels = phase_kernels(main_path)
-    # 6) kernel A at other rounds per step and tile shapes
+    # 6) object extraction and the backend
+    backend_path = phase_backend_path(card)
+    # 7) kernel A at other rounds per step and tile shapes
     sweep = phase_sweep(main_path)
 
     log(json.dumps({"main_path": {k: main_path[k] for k in ("fps", "ms_per_frame", "window_ms_per_frame",
                                                                  "spin_once_host_ms", "host_stage_ms_per_frame",
                                                                  "peak_mib", "launches")},
-                    "propagate_sweep": sweep, "card": card}))
+                    "backend_path": backend_path, "propagate_sweep": sweep, "card": card}))
     log(f"card: {card}")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,8 +3,8 @@
 Port of `khronos_tpu/active_window/active_window.py` (khronos::ActiveWindow,
 active_window.cpp:118-174 spinOnce): fused detect + integrate step -> track ->
 buffer frames -> (every min_output_separation) mesh the archived surface ->
-push ActiveWindowOutput. finish_mapping() deactivates everything and flushes
-(cpp:176-189).
+extract objects from finished tracks -> push ActiveWindowOutput.
+finish_mapping() deactivates everything and flushes (cpp:176-189).
 
 All grid work runs on the device in `fused_step`; host code orchestrates,
 tracks and accumulates outputs. The results the host needs (the packed
@@ -14,12 +14,15 @@ non-blocking copies into pinned memory with a CUDA event behind them
 the device, except to keep the tracker at most `stats_batch_frames` frames
 behind and the mesh rounds in flight at most `max_inflight_pulls`.
 
-What this slice of the port leaves out, each raising NotImplementedError:
-object extraction (finished tracks travel on
-`ActiveWindowOutput.pending_tracks`, `objects` stays empty, and
-`finalize_output` raises), the modular (`fused=False`) path, device-mesh
-sharding (`n_devices >= 1`), and object detectors other than
-ConnectedSemantics.
+Object extraction runs inline when an output is built, unless
+`defer_object_extraction` is set: then the output carries the finished
+tracks on `pending_tracks` and a later `finalize_output` extracts them (the
+reference's backend-thread extraction); `_inflight_tracks` keeps their frames
+in the frame buffer until then. `finish_mapping` always extracts inline.
+
+What the port leaves out, each raising NotImplementedError: the modular
+(`fused=False`) path, device-mesh sharding (`n_devices >= 1`), and object
+detectors other than ConnectedSemantics.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from khronos_tpu_torch.config import Plugin, plugin_field
 from khronos_tpu_torch.geometry.camera import Camera
 from khronos_tpu_torch.map import active_volume as av
 from khronos_tpu_torch.map import meshing
+from khronos_tpu_torch.stm.scene_graph import KhronosObject
 from khronos_tpu_torch.utils.host_copy import HostCopy
 from khronos_tpu_torch.utils.logging import clog
 from khronos_tpu_torch.utils.timing import Timer
@@ -99,10 +103,10 @@ class ActiveWindowOutput:
     mesh_first_ns: np.ndarray  # [T, 3] int64
     mesh_last_ns: np.ndarray
     mesh_labels: np.ndarray
-    # objects extracted from tracks that left the window (empty until object
-    # extraction is ported)
-    objects: List = dataclasses.field(default_factory=list)
-    # finished tracks whose object extraction is still to run
+    # objects extracted from tracks that left the window
+    objects: List[KhronosObject] = dataclasses.field(default_factory=list)
+    # deferred extraction (defer_object_extraction): finished tracks whose
+    # object extraction finalize_output runs
     pending_tracks: Optional[List] = None
 
 
@@ -148,6 +152,7 @@ class ActiveWindow:
         self.tracker = config.tracker.create()
         if hasattr(self.tracker, "set_camera"):
             self.tracker.set_camera(camera)
+        self.object_extractor = config.object_extractor.create(camera, device=self.device)
         self.frame_buffer = FrameDataBuffer(config.frame_data_buffer)
         self._last_output_s: float = -np.inf
         # time base: device work consumes float32 seconds RELATIVE to the
@@ -156,6 +161,11 @@ class ActiveWindow:
         self._pending_mesh: List[dict] = []  # unpacked mesh deltas
         self._pending_mesh_dev: List[HostCopy] = []  # emission rounds in flight, FIFO
         self._pending_tracks = []
+        # deferred extraction: when True, outputs carry their finished tracks
+        # and finalize_output extracts them; _inflight_tracks keeps the frames
+        # of handed-out tracks alive across the trim until then
+        self.defer_object_extraction = False
+        self._inflight_tracks: List[List] = []
         self._track_queue = collections.deque()  # (frame, HostCopy of stats), oldest first
         self.frame_count = 0
         md = config.motion_detector
@@ -227,8 +237,9 @@ class ActiveWindow:
 
             # 5) frame buffer: keep only what object extraction consumes
             # (depth + object_image + pose). Frames not yet seen by the
-            # tracker, or referenced by a live track or one waiting for the
-            # next output, survive the trim.
+            # tracker, or referenced by a live track, one waiting for the
+            # next output or one handed out for deferred extraction, survive
+            # the trim.
             self.frame_buffer.store(dataclasses.replace(
                 frame, color=None, labels=None, instances=None, dynamic_image=None,
             ))
@@ -238,6 +249,9 @@ class ActiveWindow:
                 referenced.update(f.stamp_ns for f, _ in self._track_queue)
                 for t in self._pending_tracks:
                     referenced.update(o.stamp_ns for o in t.observations)
+                for tracks in self._inflight_tracks:
+                    for t in tracks:
+                        referenced.update(o.stamp_ns for o in t.observations)
                 self.frame_buffer.trim(referenced)
 
             self.frame_count += 1
@@ -283,10 +297,15 @@ class ActiveWindow:
         return self._build_output(stamp, R, t, flush=True)
 
     def finalize_output(self, out: ActiveWindowOutput) -> ActiveWindowOutput:
-        raise NotImplementedError(
-            "object extraction is not ported yet (the next slice); finished tracks "
-            "stay on ActiveWindowOutput.pending_tracks"
-        )
+        """Run the deferred object extraction for `out` (the backend stage).
+        The tracks' frames are pinned via _inflight_tracks until this runs;
+        extraction only reads the frame buffer."""
+        if out.pending_tracks:
+            with Timer("object_extraction/all", out.stamp_ns):
+                out.objects = self.object_extractor.extract_all(out.pending_tracks, self.frame_buffer)
+            self._inflight_tracks = [t for t in self._inflight_tracks if t is not out.pending_tracks]
+            out.pending_tracks = None
+        return out
 
     # ------------------------------------------------------------------
     def _extract_output(self, frame: FrameData) -> ActiveWindowOutput:
@@ -391,12 +410,16 @@ class ActiveWindow:
             delta = _empty_mesh_delta()
         self._pending_mesh = []
 
-        # until object extraction is ported nothing reads the frames of a
-        # handed-out track, so they are not kept in the frame buffer
+        objects: List[KhronosObject] = []
         pending: Optional[List] = None
-        if self.config.object_extractor.enabled and self._pending_tracks:
-            pending = self._pending_tracks
+        if self.object_extractor is not None and self._pending_tracks:
+            if self.defer_object_extraction and not flush:
+                pending = self._pending_tracks
+                self._inflight_tracks.append(pending)
+            else:
+                with Timer("object_extraction/all", stamp_ns):
+                    objects = self.object_extractor.extract_all(self._pending_tracks, self.frame_buffer)
         self._pending_tracks = []
         return ActiveWindowOutput(
-            stamp_ns=stamp_ns, R_w_b=R, t_w_b=t, objects=[], pending_tracks=pending, **delta,
+            stamp_ns=stamp_ns, R_w_b=R, t_w_b=t, objects=objects, pending_tracks=pending, **delta,
         )

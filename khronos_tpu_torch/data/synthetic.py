@@ -4,8 +4,10 @@ Port of the clean-frame part of `khronos_tpu/data/synthetic.py`: parametric
 indoor scenes (a room, static objects with semantic labels, objects with
 presence intervals, humans walking along waypoint paths) and a camera orbit,
 rendered to depth / color / semantic-label images by sphere-tracing the scene
-SDF on the device. Sensor noise (the reference draws it with `jax.random`) is
-a later slice: `SyntheticSequenceConfig.noise` must stay None.
+SDF on the device, and the drifted odometry (`odometry_pose`, the same
+random walk as the reference: numpy's generator from the same seed). Sensor
+noise (the reference draws it with `jax.random`) is a later slice:
+`SyntheticSequenceConfig.noise` must stay None.
 """
 
 from __future__ import annotations
@@ -192,6 +194,9 @@ class SyntheticSequence:
             config.cx, config.cy, config.min_range, config.max_range,
         )
         self.n_frames = int(config.duration * config.fps)
+        rng = np.random.default_rng(config.seed)
+        self._drift_dirs = rng.normal(size=(self.n_frames, 3))
+        self._drift_dirs[:, 2] *= 0.1
 
     def pose_at(self, t: float):
         """GT camera pose: orbit around room center, looking outward/forward."""
@@ -244,6 +249,16 @@ class SyntheticSequence:
             "R_gt": R,
             "t_gt": pos,
         }
+
+    def odometry_pose(self, i: int):
+        """Drifted odometry (for backend testing): GT + accumulated noise."""
+        R, pos = self.pose_at(i / self.config.fps)
+        if self.config.drift_rate <= 0:
+            return R, pos
+        # accumulate small drift per frame
+        drift = np.cumsum(self._drift_dirs[: i + 1], axis=0)[-1] if i >= 0 else 0
+        scale = self.config.drift_rate / max(self.config.fps, 1)
+        return R, pos + drift * scale
 
 
 # ----------------------------------------------------------------------------

@@ -1,5 +1,5 @@
 """The port as a package: no JAX inside, the device rule, one config for both
-packages, and the options this slice leaves out."""
+packages, and the options the port leaves out so far."""
 
 import dataclasses
 import pathlib
@@ -15,8 +15,15 @@ from khronos_tpu.active_window.active_window import ActiveWindowConfig as JConfi
 from khronos_tpu.config import build as jbuild
 from khronos_tpu.config import to_dict as jto_dict
 from khronos_tpu_torch.active_window.active_window import ActiveWindow, ActiveWindowConfig
+from khronos_tpu_torch.active_window.object_extraction import MeshObjectExtractor, MeshObjectExtractorConfig
+from khronos_tpu_torch.backend import factor_graph
+from khronos_tpu_torch.backend.backend import Backend, BackendConfig
+from khronos_tpu_torch.backend.deformation import DeformationGraph
 from khronos_tpu_torch.config import build, to_dict
 from khronos_tpu_torch.data import synthetic as tsyn
+from khronos_tpu_torch.data.datasets import SyntheticDataset, make_dataset
+from khronos_tpu_torch.stm import serialization
+from khronos_tpu_torch.stm.scene_graph import SceneGraph
 from khronos_tpu_torch.map import active_volume as tav
 from khronos_tpu_torch.utils.host_copy import HostCopy
 
@@ -42,7 +49,11 @@ def test_imports_no_jax():
         "mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, 'khronos_tpu_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == 'khronos_tpu' or m.startswith('khronos_tpu.')]\n"
-        "assert len(mods) > 20, mods\n"
+        "assert len(mods) > 30, mods\n"
+        "for m in ('backend.backend', 'backend.factor_graph', 'backend.deformation', 'backend.loop_closure',\n"
+        "          'stm.scene_graph', 'stm.serialization', 'native', 'geometry.transforms', 'geometry.bbox',\n"
+        "          'utils.intervals', 'data.datasets', 'active_window.object_extraction'):\n"
+        "    assert 'khronos_tpu_torch.' + m in mods, m\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"
     )
@@ -67,6 +78,23 @@ def test_entry_points_need_a_gpu_unless_told_cpu(monkeypatch):
         ActiveWindow(cfg, cam, tsyn.default_label_space())
     aw = ActiveWindow(cfg, cam, tsyn.default_label_space(), device="cpu")
     assert aw.state.tsdf.device.type == "cpu"
+    assert aw.object_extractor.device.type == "cpu"
+    backend_cfg = build(BackendConfig, {"lcd": None})
+    for make in (lambda d: Backend(backend_cfg, device=d),
+                 lambda d: MeshObjectExtractor(MeshObjectExtractorConfig(), cam, device=d),
+                 lambda d: DeformationGraph(device=d),
+                 lambda d: SyntheticDataset(height=8, width=8, device=d),
+                 lambda d: factor_graph.optimize(_one_node_graph(), device=d)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make(None)
+        make("cpu")
+
+
+def _one_node_graph():
+    g = factor_graph.FactorGraphData()
+    g.add_node(np.eye(3), np.zeros(3))
+    g.add_prior(0, np.eye(3), np.ones(3))
+    return g
 
 
 def test_one_config_builds_both_packages():
@@ -77,28 +105,46 @@ def test_one_config_builds_both_packages():
         build(ActiveWindowConfig, {"no_such_key": 1})
 
 
-@pytest.mark.parametrize(
-    "override",
-    [{"n_devices": 1}, {"fused": False}],
-)
-def test_unported_options_raise(override):
+def _window(override):
     cfg = build(ActiveWindowConfig, {**BENCH, "volumetric_map": {"grid_shape": [16, 16, 8]}, **override})
     cam = tsyn.SyntheticSequence(tsyn.office_scene(), tsyn.SyntheticSequenceConfig(height=8, width=8), device="cpu").camera
+    return ActiveWindow(cfg, cam, tsyn.default_label_space(), device="cpu")
+
+
+UNPORTED_OPTIONS = {
+    "n_devices": lambda: _window({"n_devices": 1}),
+    "modular": lambda: _window({"fused": False}),
+    "solver_schur": lambda: Backend(build(BackendConfig, {"solver": "schur"}), device="cpu"),
+    "openset": lambda: SyntheticDataset(height=8, width=8, openset=True, device="cpu"),
+    **{f"lcd_{kind}": (lambda kind=kind: build(BackendConfig, {"lcd": {"type": kind}}).lcd.create())
+       for kind in ("DescriptorLoopClosure", "AppearanceLoopClosure", "SceneGraphLoopClosure", "HybridLoopClosure")},
+}
+
+
+@pytest.mark.parametrize("option", list(UNPORTED_OPTIONS))
+def test_unported_options_raise(option):
     with pytest.raises(NotImplementedError):
-        ActiveWindow(cfg, cam, tsyn.default_label_space(), device="cpu")
+        UNPORTED_OPTIONS[option]()
 
 
 def test_modular_parts_and_extraction_raise():
+    """The modular detectors, and the data sources and scene-graph layers
+    that later slices port, raise."""
     cfg = build(ActiveWindowConfig, {**BENCH, "volumetric_map": {"grid_shape": [16, 16, 8]}})
     cam = tsyn.SyntheticSequence(tsyn.office_scene(), tsyn.SyntheticSequenceConfig(height=8, width=8), device="cpu").camera
     for plugin, args in ((cfg.motion_detector, (cfg.volumetric_map, cam)),
-                         (cfg.object_detector, (cfg.volumetric_map, cam, tsyn.default_label_space())),
-                         (cfg.object_extractor, (cam,))):
+                         (cfg.object_detector, (cfg.volumetric_map, cam, tsyn.default_label_space()))):
         with pytest.raises(NotImplementedError):
             plugin.create(*args)
-    aw = ActiveWindow(cfg, cam, tsyn.default_label_space(), device="cpu")
+    for kind in ("directory", "tum", "rosbag2"):
+        with pytest.raises(NotImplementedError):
+            make_dataset(kind)
     with pytest.raises(NotImplementedError):
-        aw.finalize_output(None)
+        SyntheticDataset(scene_name="apartment", height=8, width=8, device="cpu")
+    with pytest.raises(NotImplementedError):
+        serialization.scene_graph_arrays(SceneGraph(places=object()))
+    with pytest.raises(NotImplementedError):
+        serialization.scene_graph_from_arrays({"places/positions": np.zeros((0, 3))})
 
 
 def test_host_copy_on_cpu_is_ready():

@@ -91,18 +91,24 @@ def test_active_window_matches_reference():
     ls = jsyn.default_label_space()
     jaw = JWindow(jbuild(JConfig, CONFIG), cam, ls)
     jaw.defer_object_extraction = True
-    # object extraction is the next slice: keep the reference's extractor
-    # out of the comparison (finish_mapping would otherwise run it inline)
+    # object extraction has tests of its own (test_torch_extraction.py,
+    # test_torch_pipeline.py): keep both extractors out of this comparison
+    # (finish_mapping would otherwise run them inline), recording the tracks
+    # the port's finish_mapping hands to its extractor
     jaw.object_extractor.extract_all = lambda tracks, buffer: []
     taw = TWindow(tbuild(TConfig, CONFIG), torch_camera(cam), torch_label_space(ls), device="cpu")
+    taw.defer_object_extraction = True
+    extracted = []
+    taw.object_extractor.extract_all = lambda tracks, buffer: extracted.extend(tracks) or []
 
     j_tracks, _, j_tris = _run(jaw, JFrame, jnp.asarray, fr)
     t_tracks, t_outputs, t_tris = _run(taw, TFrame, torch.from_numpy, fr)
 
     assert len(j_tracks) > 0 and any(t.is_dynamic for t in j_tracks)
     assert [_key(t) for t in j_tracks] == [_key(t) for t in t_tracks]
-    # the port hands every finished track out on pending_tracks, in order
-    handed = [t for o in t_outputs for t in (o.pending_tracks or [])]
+    # the port hands every finished track out on pending_tracks, in order,
+    # and extracts the last ones inline at finish_mapping
+    handed = [t for o in t_outputs for t in (o.pending_tracks or [])] + extracted
     assert [id(t) for t in handed] == [id(t) for t in t_tracks]
     assert all(o.objects == [] for o in t_outputs)
 

@@ -1,18 +1,26 @@
 """Shared inputs for the port's parity tests (tests/test_torch_*.py).
 
 Frames come from the JAX package's synthetic office renderer and are handed
-to both packages as the same numpy arrays; cameras and label spaces are
-rebuilt field by field in the port's own types.
+to both packages as the same numpy arrays; cameras, label spaces, tracks,
+objects, active-window outputs and factor graphs are rebuilt field by field
+in the port's own types.
 """
 
+import copy
+import dataclasses
 import functools
 
 import numpy as np
 import torch
 
 from khronos_tpu.data import synthetic as jsyn
+from khronos_tpu_torch.active_window.active_window import ActiveWindowOutput as TOutput
 from khronos_tpu_torch.active_window.object_detection import LabelSpace as TLabelSpace
+from khronos_tpu_torch.active_window.tracking import Observation as TObservation
+from khronos_tpu_torch.active_window.tracking import Track as TTrack
+from khronos_tpu_torch.backend.factor_graph import FactorGraphData as TGraph
 from khronos_tpu_torch.geometry.camera import Camera as TCamera
+from khronos_tpu_torch.stm.scene_graph import KhronosObject as TObject
 
 H, W = 48, 64  # small frames: every test stays well inside the CPU budget
 
@@ -73,3 +81,39 @@ def assert_states_match(jax_state, torch_state, float_atol: float = 1e-5):
             np.testing.assert_allclose(a[fin], b[fin], rtol=0, atol=float_atol, err_msg=name)
         else:
             np.testing.assert_array_equal(a, b, err_msg=name)
+
+
+# ----------------------------------------------------------------------------
+# Host state across packages: the JAX package's objects rebuilt field by
+# field in the port's own types (both backends consume host numpy data)
+# ----------------------------------------------------------------------------
+
+
+def _copy_fields(src, cls, **override):
+    kw = {f.name: getattr(src, f.name) for f in dataclasses.fields(cls) if f.init}
+    kw.update(override)
+    return cls(**kw)
+
+
+def torch_track(track) -> TTrack:
+    """khronos_tpu Track (with its Observations) -> the port's Track."""
+    obs = [_copy_fields(o, TObservation) for o in track.observations]
+    return _copy_fields(track, TTrack, observations=obs, last_voxels=set(track.last_voxels),
+                        category_votes=dict(track.category_votes))
+
+
+def torch_object(obj) -> TObject:
+    """khronos_tpu KhronosObject -> the port's KhronosObject (arrays copied)."""
+    return _copy_fields(copy.deepcopy(obj), TObject)
+
+
+def torch_output(out) -> TOutput:
+    """khronos_tpu ActiveWindowOutput -> the port's, objects and pending
+    tracks converted too."""
+    pending = None if out.pending_tracks is None else [torch_track(t) for t in out.pending_tracks]
+    return _copy_fields(out, TOutput, objects=[torch_object(o) for o in out.objects], pending_tracks=pending)
+
+
+def torch_graph(graph) -> TGraph:
+    """khronos_tpu FactorGraphData -> the port's (lists copied)."""
+    return TGraph(**{f.name: list(getattr(graph, f.name)) for f in dataclasses.fields(TGraph)})
