@@ -52,9 +52,23 @@ Phases, in order; any failure raises and the run exits non-zero:
    on the CPU fed the same outputs agrees with the card, and a second card
    run is bit-identical; the extractor on the card and on the CPU agrees on
    two static tracks. Times each of the slice's device functions alone;
-7. sweep: kernel A built and timed at other rounds per step and tile shapes
+7. pipeline_path: the office run users start, `python -m khronos_tpu_torch.run
+   --config configs/office_synthetic.yaml pipeline.places=null
+   run.evaluate=false run.export_viewer=false dataset.drift_rate=0.1` (300
+   frames of 240x320, change detection every 50 frames and on each loop
+   closure), through run.main. Asserts the finished flag and the output files,
+   A and B launched once a frame, a loop closure and a solve that moved
+   geometry, a full ray-library build, a delta update and a merge, at least 2
+   4D-map snapshots, final.4dmap.npz loading back equal, and the removed
+   chair's presence ending before the last 2 s. The run's change-detection
+   requests replayed through the port on the CPU (up to CPU_REPLAY_BUDGET_S,
+   at least to the first full rebuild after a loop closure) give the same
+   Changes, background states and 4D-map arrays, and a second card replay of
+   all of them the same bits; the ray index and the largest background query
+   card vs CPU. Times each of the slice's device functions alone;
+8. sweep: kernel A built and timed at other rounds per step and tile shapes
    (phase_sweep), the measurements behind the ones csrc/propagate.cu uses;
-8. prints the kernels line as JSON, then `{"ok": true, "device": ...}` last.
+9. prints the kernels line as JSON, then `{"ok": true, "device": ...}` last.
 
 With --profile PATH it also traces a few more frames with torch.profiler and
 writes the device time by kernel, the device operations per frame and the
@@ -65,6 +79,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import dataclasses
 import json
 import math
 import statistics
@@ -76,6 +91,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 FP32_OPS_PER_S = 67e12  # H100 SXM 32-bit operations outside the tensor cores
 WARMUP, FRAMES = 10, 40  # main path: warm-up frames, then timed frames
@@ -635,11 +651,11 @@ DEVICE_FUNCTIONS = (
 
 
 def _size(args) -> int:
-    """Elements in a call's tensor arguments (lists and tuples included)."""
+    """Elements in a call's tensor and array arguments (lists and tuples included)."""
     total = 0
     for a in args:
-        if torch.is_tensor(a):
-            total += a.numel()
+        if torch.is_tensor(a) or isinstance(a, np.ndarray):
+            total += a.size if isinstance(a, np.ndarray) else a.numel()
         elif isinstance(a, (list, tuple)):
             total += _size(a)
         elif hasattr(a, "__dataclass_fields__"):
@@ -651,7 +667,7 @@ def _shapes(args) -> list:
     """The shapes of a call's tensor arguments, for the report."""
     out = []
     for a in args:
-        if torch.is_tensor(a):
+        if torch.is_tensor(a) or isinstance(a, np.ndarray):
             out.append(list(a.shape))
         elif isinstance(a, list):
             out.append(f"{len(a)} items")
@@ -661,34 +677,37 @@ def _shapes(args) -> list:
 
 
 class DeviceCalls:
-    """Counts the calls of the slice's device functions while installed and
-    keeps the arguments of the largest call of each, to time it alone."""
+    """Counts the calls of a slice's device functions while installed and
+    keeps the arguments of the largest call of each, to time it alone.
+    `key(name)` names the entry a call counts under (default: the name)."""
 
-    def __init__(self):
+    def __init__(self, functions=DEVICE_FUNCTIONS, key=None):
         import importlib
 
-        self.calls = {name: 0 for _, name in DEVICE_FUNCTIONS}
+        key = key or (lambda name: name)
+        self.calls = {}
         self.largest = {}
         self.counting = True  # off while a check calls them
         self.first_ms = {}  # the first call of each, synchronized: first-use setup included
         self._installed = []
-        for mod, name in DEVICE_FUNCTIONS:
+        for mod, name in functions:
             module = importlib.import_module(f"khronos_tpu_torch.{mod}")
             fn = getattr(module, name)
 
-            def counted(*args, _fn=fn, _name=name):
+            def counted(*args, _fn=fn, _name=name, **kwargs):
                 if not self.counting:
-                    return _fn(*args)
-                self.calls[_name] += 1
+                    return _fn(*args, **kwargs)
+                k = key(_name)
+                self.calls[k] = self.calls.get(k, 0) + 1
                 size = _size(args)
-                if size >= self.largest.get(_name, (-1, None))[0]:
-                    self.largest[_name] = (size, args)
-                if _name in self.first_ms:
-                    return _fn(*args)
+                if size >= self.largest.get(k, (-1, None))[0]:
+                    self.largest[k] = (size, args, kwargs)
+                if k in self.first_ms:
+                    return _fn(*args, **kwargs)
                 ts = time.perf_counter()
-                out = _fn(*args)
+                out = _fn(*args, **kwargs)
                 torch.cuda.synchronize()
-                self.first_ms[_name] = (time.perf_counter() - ts) * 1e3
+                self.first_ms[k] = (time.perf_counter() - ts) * 1e3
                 return out
 
             setattr(module, name, counted)
@@ -865,8 +884,8 @@ def check_extraction_card_vs_cpu(camera, config, checks, calls):
     return hook
 
 
-def time_device_function(name, args) -> dict:
-    """One of the slice's device functions on the largest inputs the path gave
+def time_device_function(name, args, kwargs=None, functions=DEVICE_FUNCTIONS) -> dict:
+    """One of a slice's device functions on the largest inputs the path gave
     it: host wall time a call (with a synchronize; the path pays this), device
     kernel time a call and kernels a call (torch.profiler), peak device
     memory above what was allocated before the call."""
@@ -875,25 +894,26 @@ def time_device_function(name, args) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
 
-    mod = next(m for m, n in DEVICE_FUNCTIONS if n == name)
+    mod = next(m for m, n in functions if n == name)
     fn = getattr(importlib.import_module(f"khronos_tpu_torch.{mod}"), name)
-    fn(*args)
+    kwargs = kwargs or {}
+    fn(*args, **kwargs)
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    fn(*args)
+    fn(*args, **kwargs)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() - base
     wall = []
     for _ in range(5):
         ts = time.perf_counter()
-        fn(*args)
+        fn(*args, **kwargs)
         torch.cuda.synchronize()
         wall.append((time.perf_counter() - ts) * 1e3)
     reps = 3
     with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
-            fn(*args)
+            fn(*args, **kwargs)
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     return {"wall_ms": statistics.median(wall), "device_ms": sum(e.self_device_time_total for e in kernels) * 1e-3 / reps,
@@ -1061,6 +1081,372 @@ def phase_backend_path(card_name):
     return result
 
 
+# ---- pipeline_path: the office run users start, through the port's run.main ----
+
+PIPELINE_CONFIG = ROOT / "configs" / "office_synthetic.yaml"
+PIPELINE_OVERRIDES = ("pipeline.places=null", "run.evaluate=false", "run.export_viewer=false",
+                      "dataset.drift_rate=0.1")
+CHAIR = np.asarray([3.8, -2.6, 0.35])  # the office's chair, removed half-way through (data/synthetic.py)
+CPU_REPLAY_BUDGET_S = 90.0  # the CPU replay stops after the first rebuild after a loop closure past this
+MAP_FLOAT_ATOL = 0.0  # the change-detection path copies map floats from its inputs: card == CPU exactly
+CD_FUNCTIONS = (
+    ("changes.ray_verificator", "_build_index_device"),
+    ("changes.ray_verificator", "_query_device"),
+    ("changes.ray_verificator", "_merge_sorted_device"),
+    ("changes.ray_verificator", "_touched_cells_device"),
+    ("changes.change_detector", "_scan_device"),
+    ("changes.detectors", "_votes_device"),
+    ("eval.evaluators", "min_distances"),
+)
+CD_SPANS = ("pipeline/change_detection", "change_detection/update_verificator", "change_detection/objects",
+            "change_detection/background", "pipeline/map_update", "ray_verificator/merge_delta")
+
+
+def changes_record(changes) -> tuple:
+    """A copy of a Changes state: ObjectChange fields by node id, background states."""
+    return ({k: dataclasses.astuple(v) for k, v in changes.object_changes.items()},
+            changes.background_states.copy())
+
+
+def changes_csv(record, directory) -> tuple:
+    """The CSV bytes the port's Changes.save writes for a recorded state."""
+    from khronos_tpu_torch.changes.change_state import Changes, ObjectChange
+
+    ch = Changes()
+    ch.object_changes = {k: ObjectChange(*v) for k, v in record[0].items()}
+    ch.background_states = record[1]
+    ch.save(str(directory))
+    return tuple((Path(directory) / n).read_bytes() for n in ("object_changes.csv", "background_changes.csv"))
+
+
+def map_arrays(stm, n=None) -> dict:
+    """The first n snapshots of a 4D map: each one's scene-graph arrays as
+    materialised, its keep mask and union chunk, and the stamps."""
+    from khronos_tpu_torch.stm import serialization
+
+    n = stm.num_snapshots if n is None else n
+    out = {"stamps_ns": np.asarray(stm.stamps_ns[:n], np.int64)}
+    for i in range(n):
+        for k, v in serialization.scene_graph_arrays(stm.snapshots[i]).items():
+            out[f"{i}/{k}"] = np.asarray(v)
+        store = stm._stores[i]
+        out[f"{i}/keep"] = store["keep"]
+        out[f"{i}/union"] = np.asarray([store["u"], store["L"], store["F"]], np.int64)
+    return out
+
+
+def compare_arrays(got, want, what) -> float:
+    """Integer arrays bit for bit, float arrays within MAP_FLOAT_ATOL (the
+    same NaN pattern); returns the largest float difference."""
+    require(got.keys() == want.keys(), f"{what}: different keys")
+    worst = 0.0
+    for k, b in want.items():
+        a = got[k]
+        require(a.dtype == b.dtype and a.shape == b.shape, f"{what}: {k} is {a.dtype}{a.shape}, want {b.dtype}{b.shape}")
+        if a.dtype.kind == "f":
+            nan = np.isnan(b)
+            require(np.array_equal(np.isnan(a), nan), f"{what}: {k} NaN pattern")
+            err = float(np.abs(a[~nan].astype(np.float64) - b[~nan]).max(initial=0.0))
+            require(err <= MAP_FLOAT_ATOL, f"{what}: {k} differs by {err}")
+            worst = max(worst, err)
+        else:
+            require(np.array_equal(a, b), f"{what}: {k} differs")
+    return worst
+
+
+def replay_cd(config, requests, device, stop=None):
+    """A fresh SequentialChangeDetector + Reconciler + SpatioTemporalMap on
+    `device` fed recorded change-detection requests in order (the body of
+    KhronosPipeline.run_change_detection_on); `stop(i, seconds)` ends the
+    replay after pass i. Returns (detector, map, per-pass Changes records,
+    seconds)."""
+    from khronos_tpu_torch.changes.detectors import SequentialChangeDetector
+    from khronos_tpu_torch.changes.reconciler import Reconciler
+    from khronos_tpu_torch.stm.spatio_temporal_map import SpatioTemporalMap
+
+    det = SequentialChangeDetector(copy.deepcopy(config.change_detection), device=device)
+    rec = Reconciler(copy.deepcopy(config.reconciler), device=device)
+    stm = SpatioTemporalMap()
+    passes = []
+    t0 = time.perf_counter()
+    for i, req in enumerate(requests):
+        dsg, stamp_ns, had_lc, merges = copy.deepcopy(req)
+        changes = det.detect_changes(dsg, had_lc, merges)
+        canonical = dsg.mesh.clone(share_arrays=True)
+        stm.update(rec.reconcile(dsg, changes, merges), stamp_ns, canonical_mesh=canonical)
+        passes.append(changes_record(changes))
+        if stop is not None and stop(i, time.perf_counter() - t0):
+            break
+    return det, stm, passes, time.perf_counter() - t0
+
+
+def query_candidates(points, cell_start, num_cells, block_size, max_candidates) -> int:
+    """Candidate rays a query reads for these points (data-dependent work)."""
+    from khronos_tpu_torch import true_div
+    from khronos_tpu_torch.changes.ray_verificator import _hash_cells_dev
+
+    lin = _hash_cells_dev(torch.floor(true_div(points, block_size)).to(torch.int32), num_cells).long()
+    return int((cell_start[lin + 1] - cell_start[lin]).clamp(0, max_candidates).sum())
+
+
+def cd_function_bound(name, args, kwargs, out) -> tuple:
+    """(ms, "bytes" or "operations"): each input read once and each output
+    written once over the card's memory rate, against the operations over its
+    32-bit rate outside the tensor cores. The query counts only the candidate
+    rays its points read."""
+    def nbytes(xs):
+        return sum(x.nbytes for x in xs if isinstance(x, np.ndarray)) + sum(
+            x.numel() * x.element_size() for x in xs if torch.is_tensor(x))
+
+    outs = out if isinstance(out, (tuple, list)) else (out,)
+    if name == "_query_device":
+        points, _, cell_start, _, num_cells, block, tol, _, _, num_bins, k = args
+        n = query_candidates(points, cell_start, num_cells, block, k)
+        P = points.shape[0]
+        read = P * (12 + 4 + 8) + n * (4 + 32)  # points, tolerances, cell starts; per candidate a ray id and row
+        t_bytes = (read + P * num_bins * 2 * 4) / HBM_BYTES_PER_S
+        ops = n * 45  # a candidate's geometry: ray length, direction, depth, radial distance, the tests
+    else:
+        t_bytes = (nbytes(args) + nbytes(kwargs.values()) + nbytes(outs)) / HBM_BYTES_PER_S
+        if name == "_build_index_device":
+            ops = args[0].shape[0] * args[5] * 40  # a (ray, step): the march on 3 axes, the hash
+        elif name == "min_distances":
+            ops = len(args[0]) * len(args[1]) * 9  # a pair: 3 differences, 3 products, 2 sums, the min
+        elif name == "_scan_device":
+            ops = args[0].numel() * 15  # a (point, bin, class): masks, window sums, fractions, tests
+        else:
+            ops = 2 * sum(x.numel() for x in args if torch.is_tensor(x))  # index arithmetic
+    t_ops = ops / FP32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def phase_pipeline_path(card_name, device="cuda", overrides=()):
+    """The office run users start (configs/office_synthetic.yaml, places off,
+    drift 0.1) through the port's run.main on the card; its change-detection
+    requests replayed on the CPU and again on the card; the slice's device
+    functions timed alone. `device` and `overrides` (appended to the run's)
+    are for a rehearsal on the CPU at a small size."""
+    import importlib
+
+    import yaml
+
+    from khronos_tpu_torch import run as trun
+    from khronos_tpu_torch.changes.detectors import SequentialChangeDetector
+    from khronos_tpu_torch.ops import gather, propagate
+    from khronos_tpu_torch.pipeline.pipeline import KhronosPipeline
+    from khronos_tpu_torch.stm.spatio_temporal_map import SpatioTemporalMap
+    from khronos_tpu_torch.utils.logging import FINISHED_CLEANLY, ExperimentLogger
+    from khronos_tpu_torch.utils.timing import TimingRecorder
+
+    out_dir = ROOT / "build" / "pipeline_path"
+    dataset = yaml.safe_load(PIPELINE_CONFIG.read_text())["dataset"]
+    for ov in overrides:
+        k, _, v = ov.partition("=")
+        if k.startswith("dataset."):
+            dataset[k.split(".", 1)[1]] = yaml.safe_load(v)
+    duration = dataset["duration"]
+    recorder = TimingRecorder.instance()
+    requests, passes, state, frame_times = [], [], {}, []
+    in_objects = [False]
+
+    def key(name):
+        return f"{name} ({'objects' if in_objects[0] else 'background'})" if name == "_query_device" else name
+
+    calls = DeviceCalls(CD_FUNCTIONS, key=key)
+    originals = {(cls, n): getattr(cls, n) for cls, n in ((KhronosPipeline, "run_change_detection_on"),
+                                                           (KhronosPipeline, "process_frame"),
+                                                           (SequentialChangeDetector, "_detect_object_changes"))}
+
+    def run_cd(self, dsg, stamp_ns, had_lc, merges):
+        state["pipeline"] = self
+        requests.append(copy.deepcopy((dsg, stamp_ns, had_lc, merges)))
+        v = self.change_detector.verificator
+        before = (v.n_full_builds, v.n_delta_updates, v.n_merges)
+        counts = {n: len(recorder.samples(n)) for n in CD_SPANS}
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        originals[(KhronosPipeline, "run_change_detection_on")](self, dsg, stamp_ns, had_lc, merges)
+        torch.cuda.synchronize()
+        entries = sum(int(ix["cell_start"][-1]) for ix in v._indexes()) if v._built else 0
+        passes.append({
+            "ms": (time.perf_counter() - ts) * 1e3, "had_loop_closure": had_lc,
+            "full_build": v.n_full_builds > before[0], "delta_update": v.n_delta_updates > before[1],
+            "merge": v.n_merges > before[2], "opt_epoch": dsg.opt_epoch, "vertices": len(requests[-1][0].mesh.vertices),
+            "rays": v.total_rays, "index_entries": entries, "bins": v.active_num_bins,
+            "spans_ms": {n: sum(recorder.samples(n)[counts[n]:]) * 1e3 for n in CD_SPANS},
+            "changes": changes_record(self.change_detector.changes),
+        })
+
+    def process_frame(self, *args, **kwargs):
+        ts = time.perf_counter()
+        out = originals[(KhronosPipeline, "process_frame")](self, *args, **kwargs)
+        frame_times.append((ts, time.perf_counter()))
+        return out
+
+    def detect_objects(self, *args, **kwargs):
+        in_objects[0] = True
+        try:
+            return originals[(SequentialChangeDetector, "_detect_object_changes")](self, *args, **kwargs)
+        finally:
+            in_objects[0] = False
+
+    KhronosPipeline.run_change_detection_on = run_cd
+    KhronosPipeline.process_frame = process_frame
+    SequentialChangeDetector._detect_object_changes = detect_objects
+    argv = ["--device", device, "--config", str(PIPELINE_CONFIG), *PIPELINE_OVERRIDES, *overrides,
+            f"run.output_dir={out_dir}"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    recorder.reset()
+    propagate.launches = 0
+    gather.launches = 0
+    t0 = time.perf_counter()
+    try:
+        got_dir = trun.main(argv)
+    finally:
+        for (cls, n), fn in originals.items():
+            setattr(cls, n, fn)
+        calls.uninstall()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {"propagate": propagate.launches, "gather": gather.launches}
+    pipe = state["pipeline"]
+    n = pipe.frame_count
+    loop_s = frame_times[-1][1] - frame_times[0][0]
+    cd_in_loop_ms = sum(p["ms"] for p in passes[:-1])  # the last pass runs in finish()
+    spans = {r["name"]: {"calls": r["n_samples"], "total_ms": r["total_s"] * 1e3, "max_ms": r["max_s"] * 1e3}
+             for r in recorder.stats()}
+
+    # the run's outputs, as tests/test_pipeline_e2e.py checks the reference's
+    require(Path(got_dir) == out_dir and ExperimentLogger.has_flag(got_dir, FINISHED_CLEANLY), "not finished cleanly")
+    for f in ("dsg.npz", "final.4dmap.npz", "mesh.ply", "object_changes.csv", "background_changes.csv",
+              "objects.csv", "experiment_log.txt"):
+        require((out_dir / f).exists(), f"{f} not written")
+    require(n == round(duration * dataset["fps"]), f"{n} frames")
+    # (a CPU rehearsal launches no kernel: its tensors take the plain versions)
+    require(device != "cuda" or launches == {"propagate": n, "gather": n}, f"not one launch a frame each: {launches}")
+    be, v = pipe.backend, pipe.change_detector.verificator
+    require(len(be.loop_closures) >= 1, "no loop closure")
+    require(max(p["opt_epoch"] for p in passes) > 0, "no solve moved geometry")
+    counters = {"n_full_builds": v.n_full_builds, "n_delta_updates": v.n_delta_updates, "n_merges": v.n_merges}
+    require(all(c >= 1 for c in counters.values()), f"the ray library missed a path: {counters}")
+    require(pipe.map.num_snapshots >= 2 and pipe.map.num_snapshots == len(passes), pipe.map.num_snapshots)
+    want_map = map_arrays(pipe.map)
+    compare_arrays(map_arrays(SpatioTemporalMap.load(str(out_dir / "final.4dmap.npz"))), want_map,
+                   "final.4dmap.npz loaded back")
+    final = pipe.map.get_dsg(pipe.map.latest_ns())
+    near = [o for o in final.objects.values()
+            if not o.is_dynamic and np.linalg.norm(o.position() - CHAIR) < 1.0]
+    ends_s = sorted((o.last_observed_ns[-1] - pipe.t0_ns) * 1e-9 for o in near)
+    require(near and ends_s[0] < duration - 2.0, f"the removed chair's presence never ended: {ends_s}")
+    require(all(np.isfinite(a).all() for a in (final.mesh.vertices, final.agent_positions())), "non-finite map")
+
+    # card vs CPU: the recorded requests through the port on the CPU, up to
+    # the budget (at least to the first full rebuild after a loop closure)
+    lc_seen = [any(p["had_loop_closure"] for p in passes[: i + 1]) for i in range(len(passes))]
+    first_rebuild = next((i for i, p in enumerate(passes) if i > 0 and p["full_build"] and lc_seen[i]), len(passes) - 1)
+    cpu_det, cpu_map, cpu_passes, cpu_s = replay_cd(
+        pipe.config, requests, "cpu", stop=lambda i, s: s > CPU_REPLAY_BUDGET_S and i >= first_rebuild)
+    k = len(cpu_passes)
+    for i in range(k):
+        require(cpu_passes[i][0] == passes[i]["changes"][0], f"card and CPU object changes differ at pass {i}")
+        require(np.array_equal(cpu_passes[i][1], passes[i]["changes"][1]), f"card and CPU background states differ at pass {i}")
+    scratch = ROOT / "build" / "pipeline_path_compare"
+    require(changes_csv(cpu_passes[-1], scratch / "cpu") == changes_csv(passes[k - 1]["changes"], scratch / "card"),
+            "card and CPU Changes CSV bytes differ")
+    map_err = compare_arrays(map_arrays(cpu_map), map_arrays(pipe.map, k), "card vs CPU 4D map")
+    # a second card replay of every request: the same bits
+    again_det, again_map, again_passes, again_s = replay_cd(pipe.config, requests, device)
+    require(all(a[0] == p["changes"][0] and np.array_equal(a[1], p["changes"][1]) for a, p in zip(again_passes, passes)),
+            "a second card replay differs in its Changes")
+    compare_arrays(map_arrays(again_map), want_map, "second card replay 4D map")
+
+    # the index and the largest background query, card vs CPU
+    from khronos_tpu_torch.changes import ray_verificator as rv
+
+    def on_cpu(xs):
+        return [x.cpu() if torch.is_tensor(x) else x for x in xs]
+
+    build_args = calls.largest["_build_index_device"][1]
+    card_index = rv._build_index_device(*build_args)
+    ts = time.perf_counter()
+    cpu_index = rv._build_index_device(*on_cpu(build_args))
+    index_cpu_s = time.perf_counter() - ts
+    require(all(torch.equal(a.cpu(), b) for a, b in zip(card_index, cpu_index)), "card and CPU ray index differ")
+    query_args = calls.largest["_query_device (background)"][1]
+    card_ev = rv._query_device(*query_args).cpu()
+    cpu_ev = rv._query_device(*on_cpu(query_args))
+    ev_diff = int((card_ev != cpu_ev).sum())
+
+    # the slice's device functions alone, on the largest inputs the run gave them
+    functions = {}
+    for key_name, (size, args, kwargs) in sorted(calls.largest.items()):
+        name = key_name.split(" ")[0]
+        module = importlib.import_module("khronos_tpu_torch." + next(m for m, f in CD_FUNCTIONS if f == name))
+        fn = getattr(module, name)
+        info = time_device_function(name, args, kwargs, functions=CD_FUNCTIONS)
+        info["calls"] = calls.calls[key_name]
+        info["shapes"] = _shapes(args)
+        info["first_call_ms"] = calls.first_ms[key_name]
+        info["bound_ms"], info["bound_by"] = cd_function_bound(name, args, kwargs, fn(*args, **kwargs))
+        functions[key_name] = info
+    for key_name in ("_build_index_device", "_query_device (objects)", "_query_device (background)",
+                     "_merge_sorted_device", "_touched_cells_device", "_scan_device", "_votes_device",
+                     "min_distances"):
+        require(key_name in functions, f"{key_name} never ran on the path")
+
+    full = [p for p in passes if p["full_build"]]
+    incremental = [p for p in passes if not p["full_build"]]
+
+    def pass_summary(ps):
+        if not ps:
+            return None
+        return {"passes": len(ps), "median_ms": statistics.median(p["ms"] for p in ps), "max_ms": max(p["ms"] for p in ps),
+                "spans_ms_mean": {s: statistics.fmean(p["spans_ms"][s] for p in ps) for s in CD_SPANS}}
+
+    last = passes[-1]
+    result = {
+        "frames": n, "wall_s": wall_s, "frame_loop_s": loop_s, "fps": n / loop_s, "ms_per_frame": loop_s / n * 1e3,
+        "fps_without_cd": n / (loop_s - cd_in_loop_ms * 1e-3), "peak_mib": peak / 2**20, "launches": launches,
+        "loop_closures": len(be.loop_closures), "solves": be.num_optimizations, "geometry_epoch": last["opt_epoch"],
+        "snapshots": pipe.map.num_snapshots, "unions": len(pipe.map._unions), "counters": counters,
+        "passes": [{k2: p[k2] for k2 in p if k2 != "changes"} for p in passes],
+        "full_passes": pass_summary(full), "incremental_passes": pass_summary(incremental),
+        "last_pass": {"rays": last["rays"], "index_entries": last["index_entries"], "bins": last["bins"],
+                      "vertices": last["vertices"]},
+        "objects": len(final.objects), "chair_candidates_end_s": ends_s,
+        "cpu_replay": {"passes": k, "of": len(passes), "seconds": cpu_s, "map_float_max_abs_err": map_err},
+        "card_replay_s": again_s, "index_cpu_build_s": index_cpu_s,
+        "evidence_entries_differing": ev_diff, "evidence_entries": card_ev.numel(),
+        "host_spans": spans, "device_functions": functions,
+    }
+    log(f"pipeline_path ({card_name}): {n} frames at {dataset['height']}x{dataset['width']} through run.main in {wall_s:.1f} s; frame loop "
+        f"{result['fps']:.2f} frames/s ({result['ms_per_frame']:.2f} ms/frame, CD passes inline; "
+        f"{result['fps_without_cd']:.2f} frames/s without them); peak device memory {peak / 2**20:.1f} MiB; "
+        f"launches {launches}")
+    log(f"pipeline_path: {len(be.loop_closures)} loop closures, {be.num_optimizations} solves, geometry epoch "
+        f"{last['opt_epoch']}; {len(passes)} CD passes ({len(full)} full builds, {len(incremental)} incremental), "
+        f"ray library {counters}; {pipe.map.num_snapshots} snapshots in {len(pipe.map._unions)} union chunks; "
+        f"chair candidates end at {[round(e, 2) for e in ends_s]} s (duration {duration} s)")
+    for label, summary in (("full", result["full_passes"]), ("incremental", result["incremental_passes"])):
+        if summary:
+            log(f"pipeline_path: {label} CD passes: {summary['passes']}, median {summary['median_ms']:.1f} ms, max "
+                f"{summary['max_ms']:.1f} ms; mean span ms " + ", ".join(
+                    f"{s} {v:.1f}" for s, v in summary["spans_ms_mean"].items()))
+    log(f"pipeline_path: last pass {last['rays']} rays, {last['index_entries']} index entries, {last['bins']} bins, "
+        f"{last['vertices']} vertices; card == CPU on {k} of {len(passes)} passes ({cpu_s:.1f} s; Changes, "
+        f"background states, map arrays, float max |diff| {map_err}); a second card replay bit-identical "
+        f"({again_s:.1f} s); ray index card == CPU ({index_cpu_s:.1f} s on the CPU); largest background query "
+        f"{ev_diff} of {card_ev.numel()} evidence entries differ card vs CPU")
+    for name, info in functions.items():
+        log(f"device function {name}: {info['calls']} calls (the first {info['first_call_ms']:.1f} ms), "
+            f"{info['wall_ms']:.3f} ms a call on the host clock, {info['device_ms']:.3f} ms device kernel time in "
+            f"{info['kernels_per_call']:.0f} kernels, peak +{info['peak_extra_mib']:.1f} MiB, bound "
+            f"{info['bound_ms'] * 1e3:.3f} us by {info['bound_by']}; largest inputs {info['shapes']}")
+    return result
+
+
 SWEEP = [(d, tx, ty) for d in (1, 2, 3, 4) for tx, ty in ((8, 8), (8, 4), (4, 8), (4, 4))]
 
 
@@ -1148,13 +1534,16 @@ def main() -> int:
     kernels = phase_kernels(main_path)
     # 6) object extraction and the backend
     backend_path = phase_backend_path(card)
-    # 7) kernel A at other rounds per step and tile shapes
+    # 7) the pipeline: change detection, the reconciler and the 4D map, run.main end to end
+    pipeline_path = phase_pipeline_path(card)
+    # 8) kernel A at other rounds per step and tile shapes
     sweep = phase_sweep(main_path)
 
     log(json.dumps({"main_path": {k: main_path[k] for k in ("fps", "ms_per_frame", "window_ms_per_frame",
                                                                  "spin_once_host_ms", "host_stage_ms_per_frame",
                                                                  "peak_mib", "launches")},
-                    "backend_path": backend_path, "propagate_sweep": sweep, "card": card}))
+                    "backend_path": backend_path, "pipeline_path": pipeline_path, "propagate_sweep": sweep,
+                    "card": card}))
     log(f"card: {card}")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

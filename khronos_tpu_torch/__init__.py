@@ -47,6 +47,29 @@ def true_div(x: torch.Tensor, divisor: float) -> torch.Tensor:
     return x / torch.full((), divisor, dtype=x.dtype, device=x.device)
 
 
+def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a * b + c of float32 tensors with one rounding, as a fused multiply-add.
+
+    The reference's CPU build (XLA through LLVM) contracts such sums into
+    fused multiply-adds where a decision follows (ray marching, the ray
+    query's norms and dot products, nearest distances), and the tests hold
+    the port to it bit for bit. A float32 product is exact in float64, so one
+    float64 add and the cast give the fused result (a double rounding can
+    differ from it, about once in 2^28 sums). The card and the CPU compute
+    the same bits."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def sqrt32(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded square root of a float32 tensor.
+
+    PyTorch's CPU sqrt of a large float32 tensor may be one ulp off the
+    correctly rounded root (a vector math library's), where the reference
+    and CUDA's sqrtf round correctly; the root in float64, rounded once to
+    float32, is the correctly rounded one (53 >= 2 * 24 + 2 bits)."""
+    return torch.sqrt(x.double()).float()
+
+
 def u32_bits(words: torch.Tensor) -> torch.Tensor:
     """int64 values in [0, 2^32) -> int32 with the same 32 bits.
 

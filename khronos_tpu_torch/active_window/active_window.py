@@ -185,6 +185,13 @@ class ActiveWindow:
             x = torch.from_numpy(np.ascontiguousarray(x))
         return x.to(device=self.device, dtype=dtype)
 
+    def set_time_base(self, t0_ns: int) -> None:
+        """Fix the device time origin (called once by the pipeline so every
+        stage shares one t0). Must precede the first spin_once."""
+        if self._t0_ns is not None and self._t0_ns != t0_ns:
+            raise ValueError("time base already set from a processed frame")
+        self._t0_ns = int(t0_ns)
+
     def spin_once(self, frame: FrameData) -> Optional[ActiveWindowOutput]:
         cfg = self.config
         vol_cfg = cfg.volumetric_map

@@ -6,7 +6,7 @@ backend.cpp:255-313). The archive is the JAX package's, key for key and
 dtype for dtype (FORMAT_VERSION 1), so each package reads what the other
 writes. The places layer is not ported yet: a scene graph that carries one,
 or an archive that holds places keys, raises. The 4D-map archive
-(`.4dmap.npz`) comes with the 4D map.
+(`.4dmap.npz`) is built from these arrays by `stm/spatio_temporal_map.py`.
 """
 
 from __future__ import annotations

@@ -6,6 +6,7 @@ import pathlib
 import re
 import subprocess
 import sys
+import tempfile
 
 import numpy as np
 import pytest
@@ -19,7 +20,14 @@ from khronos_tpu_torch.active_window.object_extraction import MeshObjectExtracto
 from khronos_tpu_torch.backend import factor_graph
 from khronos_tpu_torch.backend.backend import Backend, BackendConfig
 from khronos_tpu_torch.backend.deformation import DeformationGraph
+from khronos_tpu_torch import run as trun
+from khronos_tpu_torch.changes.change_detector import RayChangeDetector, RayChangeDetectorConfig
+from khronos_tpu_torch.changes.detectors import SequentialChangeDetector, SequentialChangeDetectorConfig
+from khronos_tpu_torch.changes.ray_verificator import RayVerificator, RayVerificatorConfig
+from khronos_tpu_torch.changes.reconciler import Reconciler, ReconcilerConfig
 from khronos_tpu_torch.config import build, to_dict
+from khronos_tpu_torch.eval.evaluators import min_distances
+from khronos_tpu_torch.pipeline.pipeline import ExperimentConfig, ExperimentManager, KhronosPipeline, PipelineConfig
 from khronos_tpu_torch.data import synthetic as tsyn
 from khronos_tpu_torch.data.datasets import SyntheticDataset, make_dataset
 from khronos_tpu_torch.stm import serialization
@@ -52,7 +60,10 @@ def test_imports_no_jax():
         "assert len(mods) > 30, mods\n"
         "for m in ('backend.backend', 'backend.factor_graph', 'backend.deformation', 'backend.loop_closure',\n"
         "          'stm.scene_graph', 'stm.serialization', 'native', 'geometry.transforms', 'geometry.bbox',\n"
-        "          'utils.intervals', 'data.datasets', 'active_window.object_extraction'):\n"
+        "          'utils.intervals', 'data.datasets', 'active_window.object_extraction',\n"
+        "          'changes.change_state', 'changes.ray_verificator', 'changes.change_detector',\n"
+        "          'changes.detectors', 'changes.reconciler', 'eval.evaluators', 'stm.spatio_temporal_map',\n"
+        "          'pipeline.pipeline', 'run'):\n"
         "    assert 'khronos_tpu_torch.' + m in mods, m\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"
@@ -80,14 +91,25 @@ def test_entry_points_need_a_gpu_unless_told_cpu(monkeypatch):
     assert aw.state.tsdf.device.type == "cpu"
     assert aw.object_extractor.device.type == "cpu"
     backend_cfg = build(BackendConfig, {"lcd": None})
+    pipe_cfg = {"active_window": {"volumetric_map": {"grid_shape": [16, 16, 8]}}, "places": None}
     for make in (lambda d: Backend(backend_cfg, device=d),
                  lambda d: MeshObjectExtractor(MeshObjectExtractorConfig(), cam, device=d),
                  lambda d: DeformationGraph(device=d),
                  lambda d: SyntheticDataset(height=8, width=8, device=d),
-                 lambda d: factor_graph.optimize(_one_node_graph(), device=d)):
+                 lambda d: factor_graph.optimize(_one_node_graph(), device=d),
+                 lambda d: RayVerificator(RayVerificatorConfig(), device=d),
+                 lambda d: RayChangeDetector(RayChangeDetectorConfig(), 2.0, device=d),
+                 lambda d: SequentialChangeDetector(SequentialChangeDetectorConfig(), device=d),
+                 lambda d: Reconciler(ReconcilerConfig(), device=d),
+                 lambda d: min_distances(np.zeros((1, 3)), np.ones((1, 3)), device=d),
+                 lambda d: KhronosPipeline(build(PipelineConfig, pipe_cfg), cam, device=d)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make(None)
         make("cpu")
+    run_args = ["--config", str(ROOT / "configs" / "office_synthetic.yaml"), "pipeline.places=null",
+                "run.evaluate=false", "run.export_viewer=false"]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        trun.main(run_args)
 
 
 def _one_node_graph():
@@ -111,7 +133,32 @@ def _window(override):
     return ActiveWindow(cfg, cam, tsyn.default_label_space(), device="cpu")
 
 
+def _pipeline(override=None):
+    cfg = build(PipelineConfig, {"active_window": {"volumetric_map": {"grid_shape": [16, 16, 8]}}, "places": None,
+                                 **(override or {})})
+    cam = tsyn.SyntheticSequence(tsyn.office_scene(), tsyn.SyntheticSequenceConfig(height=8, width=8), device="cpu").camera
+    return KhronosPipeline(cfg, cam, device="cpu")
+
+
+def _run_cli(*overrides):
+    trun.main(["--device", "cpu", "--config", str(ROOT / "configs" / "office_synthetic.yaml"), *overrides])
+
+
 UNPORTED_OPTIONS = {
+    "places_default": lambda: _pipeline({"places": {}}),
+    "places_configured": lambda: _pipeline({"places": {"voxel_size": 0.2}}),
+    "async_stages": lambda: ExperimentManager(ExperimentConfig(output_dir=tempfile.mkdtemp()),
+                                              _pipeline()).run([], async_stages=True),
+    "start_async": lambda: _pipeline().start_async(),
+    "submit_frame": lambda: _pipeline().submit_frame(None),
+    "checkpoint": lambda: _pipeline().checkpoint(tempfile.mkdtemp()),
+    "restore": lambda: KhronosPipeline.restore(tempfile.mkdtemp()),
+    "checkpoint_every_n_frames": lambda: ExperimentManager(
+        ExperimentConfig(output_dir=tempfile.mkdtemp(), checkpoint_every_n_frames=5), _pipeline()),
+    "evaluate": lambda: _run_cli("pipeline.places=null", "run.export_viewer=false"),
+    "export_viewer": lambda: _run_cli("pipeline.places=null", "run.evaluate=false"),
+    "cli_places": lambda: _run_cli("run.evaluate=false", "run.export_viewer=false", "dataset.duration=0.1",
+                                   "dataset.height=8", "dataset.width=8"),
     "n_devices": lambda: _window({"n_devices": 1}),
     "modular": lambda: _window({"fused": False}),
     "solver_schur": lambda: Backend(build(BackendConfig, {"solver": "schur"}), device="cpu"),

@@ -18,9 +18,13 @@ from khronos_tpu_torch.active_window.active_window import ActiveWindowOutput as 
 from khronos_tpu_torch.active_window.object_detection import LabelSpace as TLabelSpace
 from khronos_tpu_torch.active_window.tracking import Observation as TObservation
 from khronos_tpu_torch.active_window.tracking import Track as TTrack
+from khronos_tpu_torch.backend.backend import MergeProposal as TMerge
 from khronos_tpu_torch.backend.factor_graph import FactorGraphData as TGraph
 from khronos_tpu_torch.geometry.camera import Camera as TCamera
+from khronos_tpu_torch.stm.scene_graph import AgentNode as TAgent
 from khronos_tpu_torch.stm.scene_graph import KhronosObject as TObject
+from khronos_tpu_torch.stm.scene_graph import Mesh as TMesh
+from khronos_tpu_torch.stm.scene_graph import SceneGraph as TSceneGraph
 
 H, W = 48, 64  # small frames: every test stays well inside the CPU budget
 
@@ -117,3 +121,28 @@ def torch_output(out) -> TOutput:
 def torch_graph(graph) -> TGraph:
     """khronos_tpu FactorGraphData -> the port's (lists copied)."""
     return TGraph(**{f.name: list(getattr(graph, f.name)) for f in dataclasses.fields(TGraph)})
+
+
+def torch_scene_graph(dsg) -> TSceneGraph:
+    """khronos_tpu SceneGraph (no places layer) -> the port's, arrays copied,
+    the backend's opt_epoch attribute carried over."""
+    assert dsg.places is None
+    out = TSceneGraph(
+        mesh=TMesh(**{f.name: np.array(getattr(dsg.mesh, f.name)) for f in dataclasses.fields(TMesh)}),
+        objects={k: torch_object(o) for k, o in dsg.objects.items()},
+        agents=[TAgent(a.stamp_ns, np.array(a.R_w_b), np.array(a.t_w_b), a.key) for a in dsg.agents],
+    )
+    if hasattr(dsg, "opt_epoch"):
+        out.opt_epoch = dsg.opt_epoch
+    return out
+
+
+def torch_merge(m) -> TMerge:
+    return _copy_fields(m, TMerge)
+
+
+def torch_cd_request(req):
+    """A reference pipeline's change-detection request (dsg, stamp_ns,
+    had_loop_closure, merges) in the port's types."""
+    dsg, stamp, had_lc, merges = req
+    return torch_scene_graph(dsg), stamp, had_lc, [torch_merge(m) for m in merges]
