@@ -20,7 +20,12 @@ Phases, in order; any failure raises and the run exits non-zero:
    block than the kernel lists (the odd inputs and the expectations are
    tests/test_torch_kernels_cuda.py's); one call captured in a CUDA graph
    and replayed on new inputs. B: a [307200, 2] image holding NaN bit patterns,
-   602,112 rows. Then the fused per-frame step at a small size on the card
+   602,112 rows. A also at its fixpoint, as the room segmentation calls it
+   (`propagate_labels_3d_fixpoint`, one launch): a 144x144x16 snaking
+   corridor (over a thousand rounds), a 144^3 grid of random free space (the
+   room grid's largest size) and an odd shape with Z below one tile, each
+   against the plain fixpoint loop, the rounds it reports included. Then the
+   fused per-frame step at a small size on the card
    and on the CPU (the CPU path is held to the JAX package by
    tests/test_torch_*.py): id images and the volume's integer state bit for
    bit, floats to 1e-5;
@@ -53,19 +58,30 @@ Phases, in order; any failure raises and the run exits non-zero:
    run is bit-identical; the extractor on the card and on the CPU agrees on
    two static tracks. Times each of the slice's device functions alone;
 7. pipeline_path: the office run users start, `python -m khronos_tpu_torch.run
-   --config configs/office_synthetic.yaml pipeline.places=null
-   run.evaluate=false run.export_viewer=false dataset.drift_rate=0.1` (300
-   frames of 240x320, change detection every 50 frames and on each loop
-   closure), through run.main. Asserts the finished flag and the output files,
-   A and B launched once a frame, a loop closure and a solve that moved
-   geometry, a full ray-library build, a delta update and a merge, at least 2
-   4D-map snapshots, final.4dmap.npz loading back equal, and the removed
-   chair's presence ending before the last 2 s. The run's change-detection
-   requests replayed through the port on the CPU (up to CPU_REPLAY_BUDGET_S,
-   at least to the first full rebuild after a loop closure) give the same
-   Changes, background states and 4D-map arrays, and a second card replay of
-   all of them the same bits; the ray index and the largest background query
-   card vs CPU. Times each of the slice's device functions alone;
+   --config configs/office_synthetic.yaml dataset.drift_rate=0.1` (300 frames
+   of 240x320, the places layer per output, change detection every 50 frames
+   and on each loop closure, then the viewer export and the evaluation),
+   through run.main. Asserts the finished flag and the output files (the
+   viewer, gt.npz, the result CSVs, the printed tables), B launched once a
+   frame and A once a frame plus once a room segmentation, a loop closure and
+   a solve that moved geometry, a full ray-library build, a delta update and
+   a merge, at least 2 4D-map snapshots, final.4dmap.npz loading back equal,
+   the removed chair's presence ending before the last 2 s, the places layer
+   as the reference's office e2e test holds it (mid-run and final snapshots
+   non-empty, at least one room, every place in a room, clearances in [0.2,
+   6] m), and the map quality within a slack of the JAX package's own run of
+   the same command on the CPU (REFERENCE_QUALITY). The run's
+   extractor calls replayed through a PlacesExtractor on the CPU and again on
+   the card give the same layers, bit for bit; `python -m
+   khronos_tpu_torch.eval --only-final` on the saved run writes the same
+   CSVs. The run's change-detection requests replayed through the port on
+   the CPU (up to CPU_REPLAY_BUDGET_S, at least to the first full rebuild
+   after a loop closure) give the same Changes, background states and 4D-map
+   arrays, and a second card replay of all of them the same bits; the ray
+   index and the largest background query card vs CPU. Times each of the
+   slice's device functions alone, and the evaluation's prune-to-observed
+   distances. Then kernel A on the run's largest room grid, to the fixpoint:
+   bit for bit and timed beside the plain fixpoint loop;
 8. sweep: kernel A built and timed at other rounds per step and tile shapes
    (phase_sweep), the measurements behind the ones csrc/propagate.cu uses;
 9. prints the kernels line as JSON, then `{"ok": true, "device": ...}` last.
@@ -442,6 +458,26 @@ def check_propagate(propagate, lab, grow, iterations, name) -> dict:
             "active_tiles": active, "tiles": tiles}
 
 
+def check_fixpoint(propagate, lab, grow, name) -> dict:
+    """Kernel A to the fixpoint (propagate_labels_3d_fixpoint, one launch)
+    against the plain fixpoint loop, bit for bit, and the rounds it reports
+    against the loop's count (tests/test_torch_kernels_cuda.py's
+    fixpoint_rounds)."""
+    before = propagate.launches
+    got = propagate.propagate_labels_3d_fixpoint(lab, grow)
+    want, plain_rounds = propagate.propagate_labels_3d_fixpoint_plain(lab, grow)
+    torch.cuda.synchronize()
+    require(propagate.launches - before == 1, f"kernel A at the fixpoint: {propagate.launches - before} launches ({name})")
+    require(torch.equal(got, want), f"kernel A at the fixpoint differs from the plain fixpoint loop ({name})")
+    _, ws = propagate.launch(lab, grow, lab.numel())
+    rounds = int(ws[propagate.WS_ROUNDS])
+    want_rounds = kernel_cases().fixpoint_rounds(plain_rounds, grow, lab.numel())
+    require(rounds == want_rounds, f"kernel A ran {rounds} rounds to the fixpoint, the plain loop {plain_rounds} "
+                                   f"(want {want_rounds}) ({name})")
+    return {"input": name, "shape": list(lab.shape), "plain_rounds": plain_rounds, "rounds": rounds,
+            "growable_share": float(grow.float().mean()), "max_abs_err": 0}
+
+
 def check_propagate_graph(propagate):
     """One call of kernel A captured into a CUDA graph, replayed on new inputs
     copied into the captured tensors: bit-exact each time."""
@@ -508,14 +544,26 @@ def phase_kernel_checks():
                     "more active tiles than a block lists, fixpoint at round 0")
     del big_grow, big_lab
     check_propagate_graph(propagate)
+    # to the fixpoint, as the room segmentation runs it
+    fixpoints = [check_fixpoint(propagate, *(x.cuda() for x in cases.snake_case((144, 144, 16), pitch=16)),
+                                "144x144x16 snaking corridor")]
+    require(fixpoints[0]["plain_rounds"] > 300, fixpoints[0])
+    gr = torch.Generator(device="cuda").manual_seed(8)
+    room = torch.rand((144, 144, 144), device="cuda", generator=gr) < 0.6
+    seeds = torch.arange(1, room.numel() + 1, dtype=torch.int32, device="cuda").view(room.shape)
+    fixpoints.append(check_fixpoint(propagate, torch.where(room, seeds, -1), room, "144^3 random free space"))
+    del room, seeds
+    fixpoints.append(check_fixpoint(propagate, *(x.cuda() for x in cases.propagate_case((37, 53, 5), "mid", seed=1)),
+                                    "37x53x5 (Z below one tile)"))
     g = torch.Generator(device="cuda").manual_seed(0)
     idx = torch.randint(0, IMG_ROWS, (VOXELS,), device="cuda", generator=g, dtype=torch.int32)
     idx[:4] = torch.tensor([-1, -IMG_ROWS - 1, IMG_ROWS, 2**31 - 1], dtype=torch.int32)  # clamped
     check_gather(gather, nan_pattern_image(g), idx, "NaN patterns, random rows")
     log(f"kernel checks: A at {CROP} x {ITERATIONS} rounds (random seeds), the wall at {ITERATIONS} and 112 "
         f"rounds, {n_odd} odd shape x input x iterations cases, a {big} grid with more active tiles a block "
-        f"than its list holds, and a CUDA-graph replay, one launch each; B at "
-        f"[{IMG_ROWS}, 2] x {VOXELS} rows (NaN patterns); all bit-exact against their plain versions")
+        f"than its list holds, and a CUDA-graph replay, one launch each; A to the fixpoint on "
+        + ", ".join(f"{f['input']} ({f['rounds']} rounds, the plain loop {f['plain_rounds']})" for f in fixpoints)
+        + f"; B at [{IMG_ROWS}, 2] x {VOXELS} rows (NaN patterns); all bit-exact against their plain versions")
 
 
 def per_round_propagate(lab, grow, iterations):
@@ -1084,8 +1132,7 @@ def phase_backend_path(card_name):
 # ---- pipeline_path: the office run users start, through the port's run.main ----
 
 PIPELINE_CONFIG = ROOT / "configs" / "office_synthetic.yaml"
-PIPELINE_OVERRIDES = ("pipeline.places=null", "run.evaluate=false", "run.export_viewer=false",
-                      "dataset.drift_rate=0.1")
+PIPELINE_OVERRIDES = ("dataset.drift_rate=0.1",)
 CHAIR = np.asarray([3.8, -2.6, 0.35])  # the office's chair, removed half-way through (data/synthetic.py)
 CPU_REPLAY_BUDGET_S = 90.0  # the CPU replay stops after the first rebuild after a loop closure past this
 MAP_FLOAT_ATOL = 0.0  # the change-detection path copies map floats from its inputs: card == CPU exactly
@@ -1097,6 +1144,30 @@ CD_FUNCTIONS = (
     ("changes.change_detector", "_scan_device"),
     ("changes.detectors", "_votes_device"),
     ("eval.evaluators", "min_distances"),
+)
+PLACES_FUNCTIONS = (
+    ("stm.places", "_candidate_field"),
+    ("stm.places", "_room_blobs"),
+)
+PIPELINE_FUNCTIONS = CD_FUNCTIONS + PLACES_FUNCTIONS
+PLACES_CALLS = ("add_mesh_delta", "update_local", "reset_occupancy", "refresh_rooms", "extract")
+PLACES_SPANS = ("pipeline/places_incremental", "pipeline/places", "pipeline/places_reset", "places/window_cells",
+                "places/candidates", "places/edges", "places/rooms")
+RESULT_FILES = ("background_mesh.csv", "static_objects.csv", "dynamic_objects.csv", "changes.csv",
+                "map_timestamps.txt")
+# The map quality of the same command through the JAX package on the CPU
+# (`python -m khronos_tpu.run --config configs/office_synthetic.yaml
+# dataset.drift_rate=0.1`, its results/*.csv): (CSV, column, value, slack).
+# The card's run must reach each value less its slack: loop closures on
+# drifted odometry differ by ulps between builds, and move the map a little.
+REFERENCE_QUALITY = (
+    ("background_mesh.csv", "accuracy@0.2", 0.9428, 0.03),
+    ("background_mesh.csv", "completeness@0.2", 0.9984891216760677, 0.03),
+    ("background_mesh.csv", "f1@0.2", 0.9698457930917915, 0.03),
+    ("static_objects.csv", "precision", 1.0, 0.2),
+    ("static_objects.csv", "recall", 1.0, 0.2),
+    ("changes.csv", "change_precision", 0.5, 0.25),
+    ("changes.csv", "change_recall", 1.0, 0.5),
 )
 CD_SPANS = ("pipeline/change_detection", "change_detection/update_verificator", "change_detection/objects",
             "change_detection/background", "pipeline/map_update", "ray_verificator/merge_delta")
@@ -1220,20 +1291,104 @@ def cd_function_bound(name, args, kwargs, out) -> tuple:
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def layer_record(layer) -> tuple:
+    """A places layer as arrays: positions, clearances, room ids, edges."""
+    n = layer.nodes
+    return (np.asarray([x.position for x in n], np.float32).reshape(-1, 3),
+            np.asarray([x.distance for x in n], np.float64), np.asarray([x.room_id for x in n], np.int64),
+            np.asarray([(int(a), int(b), float(c)) for a, b, c in layer.edges], np.float64).reshape(-1, 3))
+
+
+def layers_equal(a, b) -> bool:
+    return all(x.dtype == y.dtype and np.array_equal(x, y) for x, y in zip(a, b))
+
+
+def replay_places(config, calls, device):
+    """A fresh PlacesExtractor on `device` fed the recorded calls in order;
+    (extractor, the layer after each call, seconds)."""
+    from khronos_tpu_torch.stm.places import PlacesExtractor
+
+    ex = PlacesExtractor(copy.deepcopy(config), device=device)
+    layers = []
+    t0 = time.perf_counter()
+    for name, args, kwargs in calls:
+        out = getattr(ex, name)(*args, **kwargs)
+        layers.append(layer_record(out if name == "extract" else ex.layer))
+    return ex, layers, time.perf_counter() - t0
+
+
+def room_grid_of(args):
+    """The (labels, growable) grid one _room_blobs call hands kernel A."""
+    from khronos_tpu_torch.stm import places
+
+    grids = []
+    fixpoint = places.propagate_labels_3d_fixpoint
+    places.propagate_labels_3d_fixpoint = lambda lab, grow: grids.append((lab, grow)) or fixpoint(lab, grow)
+    try:
+        places._room_blobs(*args)
+    finally:
+        places.propagate_labels_3d_fixpoint = fixpoint
+    return grids[0]
+
+
+def places_function_bound(name, args, rounds=None) -> tuple:
+    """(ms, "bytes" or "operations") of the places device functions: the
+    cell indices read once and the outputs written once, against the
+    operations a cell: _candidate_field's chamfer (per round and axis two
+    neighbour minima, an add, a minimum) and maxima test; _room_blobs' ball
+    taps (a multiply-add each), the floor closing's two pools and cumsum,
+    and 7 a round of the components (this run's rounds)."""
+    from khronos_tpu_torch.stm import places
+
+    cells = math.prod(args[2] if name == "_room_blobs" else args[1])
+    if name == "_candidate_field":
+        iterations = args[3]
+        t_bytes = (args[0].numel() * 8 + cells * 5) / HBM_BYTES_PER_S
+        ops = cells * (iterations * 3 * 4 + 12)
+    else:
+        _, ball = places._ball(args[3], args[4])
+        f = args[5]
+        t_bytes = (args[0].numel() * 8 + args[1].numel() + cells * 4) / HBM_BYTES_PER_S
+        ops = cells * (2 * int(ball.sum()) + 2 * (2 * f + 1) ** 2 + 1 + 7 * rounds)
+    t_ops = ops / FP32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def read_result(path) -> dict:
+    """The last row of a result CSV, as floats where they parse."""
+    import csv
+
+    with open(path) as fh:
+        row = list(csv.DictReader(fh))[-1]
+    out = {}
+    for k, v in row.items():
+        try:
+            out[k] = float(v)
+        except ValueError:
+            out[k] = v
+    return out
+
+
 def phase_pipeline_path(card_name, device="cuda", overrides=()):
-    """The office run users start (configs/office_synthetic.yaml, places off,
-    drift 0.1) through the port's run.main on the card; its change-detection
-    requests replayed on the CPU and again on the card; the slice's device
-    functions timed alone. `device` and `overrides` (appended to the run's)
-    are for a rehearsal on the CPU at a small size."""
+    """The office run users start (configs/office_synthetic.yaml, drift 0.1)
+    through the port's run.main on the card, the places layer, the viewer and
+    the evaluation on; its places calls replayed on the CPU and on the card;
+    its change-detection requests replayed on the CPU and again on the card;
+    the slice's device functions timed alone. `device` and `overrides`
+    (appended to the run's) are for a rehearsal on the CPU at a small size."""
+    import contextlib
     import importlib
+    import io
 
     import yaml
 
     from khronos_tpu_torch import run as trun
     from khronos_tpu_torch.changes.detectors import SequentialChangeDetector
+    from khronos_tpu_torch.eval import pipeline_evaluator as pe  # bound to the original min_distances
+    from khronos_tpu_torch.eval import viewer
     from khronos_tpu_torch.ops import gather, propagate
     from khronos_tpu_torch.pipeline.pipeline import KhronosPipeline
+    from khronos_tpu_torch.stm.places import PlacesExtractor
     from khronos_tpu_torch.stm.spatio_temporal_map import SpatioTemporalMap
     from khronos_tpu_torch.utils.logging import FINISHED_CLEANLY, ExperimentLogger
     from khronos_tpu_torch.utils.timing import TimingRecorder
@@ -1252,10 +1407,34 @@ def phase_pipeline_path(card_name, device="cuda", overrides=()):
     def key(name):
         return f"{name} ({'objects' if in_objects[0] else 'background'})" if name == "_query_device" else name
 
-    calls = DeviceCalls(CD_FUNCTIONS, key=key)
+    calls = DeviceCalls(PIPELINE_FUNCTIONS, key=key)
     originals = {(cls, n): getattr(cls, n) for cls, n in ((KhronosPipeline, "run_change_detection_on"),
                                                            (KhronosPipeline, "process_frame"),
-                                                           (SequentialChangeDetector, "_detect_object_changes"))}
+                                                           (SequentialChangeDetector, "_detect_object_changes"),
+                                                           (pe.PipelineEvaluator, "evaluate"),
+                                                           (pe, "save_ground_truth"), (viewer, "export_html"),
+                                                           *((PlacesExtractor, n) for n in PLACES_CALLS))}
+    place_calls, after_ms = [], {}
+
+    def record_places(name):
+        def recorded(self, *args, **kwargs):
+            place_calls.append((name, copy.deepcopy(args), copy.deepcopy(kwargs)))
+            return originals[(PlacesExtractor, name)](self, *args, **kwargs)
+        return recorded
+
+    def after_the_run(owner, name):
+        """The steps of run.main after the frame loop, timed; the slice's
+        device-function counts leave their distances out."""
+        def timed(*args, **kwargs):
+            calls.counting = False
+            ts = time.perf_counter()
+            try:
+                return originals[(owner, name)](*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                after_ms[name] = (time.perf_counter() - ts) * 1e3
+                calls.counting = True
+        return timed
 
     def run_cd(self, dsg, stamp_ns, had_lc, merges):
         state["pipeline"] = self
@@ -1293,6 +1472,10 @@ def phase_pipeline_path(card_name, device="cuda", overrides=()):
     KhronosPipeline.run_change_detection_on = run_cd
     KhronosPipeline.process_frame = process_frame
     SequentialChangeDetector._detect_object_changes = detect_objects
+    for owner, name in ((pe.PipelineEvaluator, "evaluate"), (pe, "save_ground_truth"), (viewer, "export_html")):
+        setattr(owner, name, after_the_run(owner, name))
+    for name in PLACES_CALLS:
+        setattr(PlacesExtractor, name, record_places(name))
     argv = ["--device", device, "--config", str(PIPELINE_CONFIG), *PIPELINE_OVERRIDES, *overrides,
             f"run.output_dir={out_dir}"]
     torch.cuda.synchronize()
@@ -1300,9 +1483,11 @@ def phase_pipeline_path(card_name, device="cuda", overrides=()):
     recorder.reset()
     propagate.launches = 0
     gather.launches = 0
+    printed = io.StringIO()
     t0 = time.perf_counter()
     try:
-        got_dir = trun.main(argv)
+        with contextlib.redirect_stdout(printed):
+            got_dir = trun.main(argv)
     finally:
         for (cls, n), fn in originals.items():
             setattr(cls, n, fn)
@@ -1311,6 +1496,7 @@ def phase_pipeline_path(card_name, device="cuda", overrides=()):
     wall_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     launches = {"propagate": propagate.launches, "gather": gather.launches}
+    printed = printed.getvalue()
     pipe = state["pipeline"]
     n = pipe.frame_count
     loop_s = frame_times[-1][1] - frame_times[0][0]
@@ -1321,11 +1507,23 @@ def phase_pipeline_path(card_name, device="cuda", overrides=()):
     # the run's outputs, as tests/test_pipeline_e2e.py checks the reference's
     require(Path(got_dir) == out_dir and ExperimentLogger.has_flag(got_dir, FINISHED_CLEANLY), "not finished cleanly")
     for f in ("dsg.npz", "final.4dmap.npz", "mesh.ply", "object_changes.csv", "background_changes.csv",
-              "objects.csv", "experiment_log.txt"):
+              "objects.csv", "experiment_log.txt", "viewer.html", "gt.npz", *(f"results/{r}" for r in RESULT_FILES)):
         require((out_dir / f).exists(), f"{f} not written")
+    require("Background mesh (final row; values in %):" in printed and "Changes:" in printed
+            and "pipeline/frame" in printed, f"the results and timing tables were not printed:\n{printed}")
     require(n == round(duration * dataset["fps"]), f"{n} frames")
-    # (a CPU rehearsal launches no kernel: its tensors take the plain versions)
-    require(device != "cuda" or launches == {"propagate": n, "gather": n}, f"not one launch a frame each: {launches}")
+    # A launches once a frame (the motion regions) and once a room
+    # segmentation (in update_local's and refresh_rooms' places/rooms spans,
+    # and in extract, which places_mode 'output' does not call); B once a
+    # frame. (A CPU rehearsal launches no kernel: its tensors take the plain
+    # versions.)
+    room_calls = calls.calls.get("_room_blobs", 0)
+    rooms_spans = spans.get("places/rooms", {}).get("calls", 0)
+    extracts = sum(c[0] == "extract" for c in place_calls)
+    require(room_calls == rooms_spans + extracts and room_calls >= 1,
+            f"room segmentations: {room_calls} calls, {rooms_spans} places/rooms spans, {extracts} extract calls")
+    require(device != "cuda" or launches == {"propagate": n + room_calls, "gather": n},
+            f"launches {launches}: want A {n} + {room_calls}, B {n}")
     be, v = pipe.backend, pipe.change_detector.verificator
     require(len(be.loop_closures) >= 1, "no loop closure")
     require(max(p["opt_epoch"] for p in passes) > 0, "no solve moved geometry")
@@ -1341,6 +1539,51 @@ def phase_pipeline_path(card_name, device="cuda", overrides=()):
     ends_s = sorted((o.last_observed_ns[-1] - pipe.t0_ns) * 1e-9 for o in near)
     require(near and ends_s[0] < duration - 2.0, f"the removed chair's presence never ended: {ends_s}")
     require(all(np.isfinite(a).all() for a in (final.mesh.vertices, final.agent_positions())), "non-finite map")
+
+    # the places layer, as tests/test_pipeline_e2e.py holds the reference's
+    snaps = pipe.map.snapshots
+    mid_places, final_places = snaps[len(snaps) // 2].places, snaps[-1].places
+    require(mid_places is not None and len(mid_places.nodes) > 0, "the mid-run snapshot has no places layer")
+    require(final_places is not None and len(final_places.nodes) > 0, "the final snapshot has no places layer")
+    require(final_places.num_rooms >= 1 and all(p.room_id >= 0 for p in final_places.nodes),
+            f"final rooms: {sorted({p.room_id for p in final_places.nodes})}")
+    clearances = [p.distance for p in final_places.nodes]
+    require(all(0.2 <= c <= 6.0 for c in clearances), f"clearances {min(clearances)} to {max(clearances)} m")
+    # the extractor's calls replayed on the CPU and on the card: the same layers
+    live = layer_record(pipe.places_extractor.layer)
+    cpu_ex, cpu_layers, places_cpu_s = replay_places(pipe.config.places, place_calls, "cpu")
+    card_ex, card_layers, places_card_s = replay_places(pipe.config.places, place_calls, device)
+    for i, (a, b) in enumerate(zip(cpu_layers, card_layers)):
+        require(layers_equal(a, b), f"places: the CPU and card replays differ after call {i} ({place_calls[i][0]})")
+    require(layers_equal(card_layers[-1], live), "places: the replays' final layer differs from the run's")
+
+    # the evaluation: quality against the reference's run of the same command,
+    # and the standalone CLI on the saved run
+    quality = {}
+    for csv_name, column, ref, slack in REFERENCE_QUALITY:
+        got = read_result(out_dir / "results" / csv_name)[column]
+        quality[f"{csv_name[:-4]}/{column}"] = {"card": got, "reference": ref, "slack": slack}
+        require(got >= ref - slack, f"map quality: {csv_name} {column} = {got}, the reference {ref} less {slack}")
+    cli_dir = out_dir / "results_cli"
+    ts = time.perf_counter()
+    cli = subprocess.run([sys.executable, "-m", "khronos_tpu_torch.eval", "--map", str(out_dir / "final.4dmap.npz"),
+                          "--only-final", "--out", str(cli_dir), "--device", device],
+                         cwd=ROOT, capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - ts
+    require(cli.returncode == 0, f"the eval CLI failed:\n{cli.stderr[-3000:]}")
+    for r in RESULT_FILES:
+        require((cli_dir / r).read_bytes() == (out_dir / "results" / r).read_bytes(),
+                f"the eval CLI's {r} differs from the run's")
+    # the evaluation's largest distance call (prune-to-observed: the ground
+    # truth's cloud against every observed vertex), alone
+    from khronos_tpu_torch.eval.evaluators import min_distances
+
+    gt_cloud = pe.FileGroundTruth(str(out_dir / "gt.npz")).background_points(pipe.map.latest_ns() * 1e-9)
+    prune_args = (gt_cloud.astype(np.float32), final.mesh.vertices.astype(np.float32))
+    prune = time_device_function("min_distances", prune_args, {"device": device}, functions=CD_FUNCTIONS)
+    prune["shapes"] = _shapes(prune_args)
+    prune["bound_ms"], prune["bound_by"] = cd_function_bound("min_distances", prune_args, {},
+                                                             min_distances(*prune_args, device=device))
 
     # card vs CPU: the recorded requests through the port on the CPU, up to
     # the budget (at least to the first full rebuild after a loop closure)
@@ -1380,20 +1623,27 @@ def phase_pipeline_path(card_name, device="cuda", overrides=()):
     ev_diff = int((card_ev != cpu_ev).sum())
 
     # the slice's device functions alone, on the largest inputs the run gave them
+    # kernel A's room grid: the largest room segmentation's
+    room_lab, room_grow = room_grid_of(calls.largest["_room_blobs"][1])
+    room_rounds = propagate.propagate_labels_3d_fixpoint_plain(room_lab, room_grow)[1]
     functions = {}
     for key_name, (size, args, kwargs) in sorted(calls.largest.items()):
         name = key_name.split(" ")[0]
-        module = importlib.import_module("khronos_tpu_torch." + next(m for m, f in CD_FUNCTIONS if f == name))
+        module = importlib.import_module("khronos_tpu_torch." + next(m for m, f in PIPELINE_FUNCTIONS if f == name))
         fn = getattr(module, name)
-        info = time_device_function(name, args, kwargs, functions=CD_FUNCTIONS)
+        info = time_device_function(name, args, kwargs, functions=PIPELINE_FUNCTIONS)
         info["calls"] = calls.calls[key_name]
-        info["shapes"] = _shapes(args)
+        info["shapes"] = _shapes(args) + ([list(args[2])] if name == "_room_blobs" else
+                                          [list(args[1])] if name == "_candidate_field" else [])
         info["first_call_ms"] = calls.first_ms[key_name]
-        info["bound_ms"], info["bound_by"] = cd_function_bound(name, args, kwargs, fn(*args, **kwargs))
+        if name in ("_candidate_field", "_room_blobs"):
+            info["bound_ms"], info["bound_by"] = places_function_bound(name, args, room_rounds)
+        else:
+            info["bound_ms"], info["bound_by"] = cd_function_bound(name, args, kwargs, fn(*args, **kwargs))
         functions[key_name] = info
     for key_name in ("_build_index_device", "_query_device (objects)", "_query_device (background)",
                      "_merge_sorted_device", "_touched_cells_device", "_scan_device", "_votes_device",
-                     "min_distances"):
+                     "min_distances", "_candidate_field", "_room_blobs"):
         require(key_name in functions, f"{key_name} never ran on the path")
 
     full = [p for p in passes if p["full_build"]]
@@ -1420,6 +1670,16 @@ def phase_pipeline_path(card_name, device="cuda", overrides=()):
         "card_replay_s": again_s, "index_cpu_build_s": index_cpu_s,
         "evidence_entries_differing": ev_diff, "evidence_entries": card_ev.numel(),
         "host_spans": spans, "device_functions": functions,
+        "places": {"calls": {n: sum(c[0] == n for c in place_calls) for n in PLACES_CALLS},
+                   "room_segmentations": room_calls, "final_nodes": len(final_places.nodes),
+                   "final_edges": len(final_places.edges), "final_rooms": final_places.num_rooms,
+                   "mid_nodes": len(mid_places.nodes), "clearance_m": [min(clearances), max(clearances)],
+                   "replay_cpu_s": places_cpu_s, "replay_card_s": places_card_s,
+                   "room_grid": list(room_lab.shape), "room_grid_growable": int(room_grow.sum()),
+                   "room_fixpoint_rounds": room_rounds,
+                   "spans_ms": {k: spans[k] for k in PLACES_SPANS if k in spans}},
+        "after_the_run_ms": after_ms, "eval_cli_s": cli_s, "quality": quality, "prune_to_observed": prune,
+        "_room_grid": (room_lab, room_grow),
     }
     log(f"pipeline_path ({card_name}): {n} frames at {dataset['height']}x{dataset['width']} through run.main in {wall_s:.1f} s; frame loop "
         f"{result['fps']:.2f} frames/s ({result['ms_per_frame']:.2f} ms/frame, CD passes inline; "
@@ -1439,12 +1699,53 @@ def phase_pipeline_path(card_name, device="cuda", overrides=()):
         f"background states, map arrays, float max |diff| {map_err}); a second card replay bit-identical "
         f"({again_s:.1f} s); ray index card == CPU ({index_cpu_s:.1f} s on the CPU); largest background query "
         f"{ev_diff} of {card_ev.numel()} evidence entries differ card vs CPU")
+    pl = result["places"]
+    log(f"pipeline_path: places: calls {pl['calls']}, {room_calls} room segmentations; final layer "
+        f"{pl['final_nodes']} places, {pl['final_edges']} edges, {pl['final_rooms']} rooms, clearances "
+        f"{min(clearances):.3f} to {max(clearances):.3f} m; mid-run {pl['mid_nodes']} places; replays bit-identical "
+        f"(CPU {places_cpu_s:.1f} s, card {places_card_s:.1f} s); host ms by span (calls, total, max): " + ", ".join(
+            f"{k} {v['calls']} / {v['total_ms']:.1f} / {v['max_ms']:.1f}" for k, v in pl["spans_ms"].items()))
+    log("pipeline_path: after the frame loop (ms): " + ", ".join(f"{k} {v:.1f}" for k, v in after_ms.items())
+        + f"; eval CLI {cli_s:.1f} s, the same CSVs; prune-to-observed min_distances {prune['shapes']}: "
+        f"{prune['wall_ms']:.2f} ms host, {prune['device_ms']:.3f} ms device in {prune['kernels_per_call']:.0f} "
+        f"kernels, peak +{prune['peak_extra_mib']:.1f} MiB, bound {prune['bound_ms'] * 1e3:.3f} us")
+    log("pipeline_path: quality (card / reference less slack): " + ", ".join(
+        f"{k} {v['card']:.4f} / {v['reference']:.4f} - {v['slack']}" for k, v in quality.items()))
+    log("pipeline_path: printed tables:\n" + printed.strip())
     for name, info in functions.items():
         log(f"device function {name}: {info['calls']} calls (the first {info['first_call_ms']:.1f} ms), "
             f"{info['wall_ms']:.3f} ms a call on the host clock, {info['device_ms']:.3f} ms device kernel time in "
             f"{info['kernels_per_call']:.0f} kernels, peak +{info['peak_extra_mib']:.1f} MiB, bound "
             f"{info['bound_ms'] * 1e3:.3f} us by {info['bound_by']}; largest inputs {info['shapes']}")
     return result
+
+
+def phase_room_fixpoint(pipeline):
+    """Kernel A on the pipeline run's largest room grid, to the fixpoint:
+    bit-exact against the plain fixpoint loop (rounds included), then one
+    call timed beside the loop and beside its bound. The kernels line's row
+    for the room segmentation's calls."""
+    from khronos_tpu_torch.ops import propagate
+
+    lab, grow = (x.cuda() for x in pipeline.pop("_room_grid"))
+    info = check_fixpoint(propagate, lab, grow, "pipeline_path's largest room grid")
+    p_ms, k_ms = in_turns(lambda: propagate.propagate_labels_3d_fixpoint_plain(lab, grow),
+                          lambda: propagate.propagate_labels_3d_fixpoint(lab, grow))
+    bound_us, bound_by = propagate_bound(lab, info["rounds"])
+    row = {
+        "name": "propagate_labels_3d_fixpoint (room segmentation)", "route": "cuda",
+        "source": "khronos_tpu_torch/csrc/propagate.cu", "replaces": "khronos_tpu/ops/pallas/propagate.py:49",
+        "launches": pipeline["places"]["room_segmentations"], "launches_per_segmentation": 1, "match": True,
+        "max_abs_err": info["max_abs_err"], "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_us * 1e-3,
+        "bound_us": bound_us, "bound_by": bound_by, "library_ms": None, "shape": list(lab.shape),
+        "rounds": info["rounds"], "plain_rounds": info["plain_rounds"], "growable_share": info["growable_share"],
+        "active_tiles_share": kernel_cases().active_tiles(grow) / propagate.n_tiles(lab.shape),
+    }
+    log(f"kernel A to the fixpoint on {row['shape']} (the run's largest room grid, growable share "
+        f"{row['growable_share']:.4f}, {row['active_tiles_share']:.4f} of tiles active): {k_ms * 1e3:.2f} us in 1 launch, "
+        f"{info['rounds']} rounds (the plain loop {info['plain_rounds']}); plain fixpoint loop {p_ms * 1e3:.1f} us; "
+        f"bound {bound_us:.3f} us by {bound_by}; {row['launches']} launches on pipeline_path")
+    return row
 
 
 SWEEP = [(d, tx, ty) for d in (1, 2, 3, 4) for tx, ty in ((8, 8), (8, 4), (4, 8), (4, 4))]
@@ -1534,8 +1835,10 @@ def main() -> int:
     kernels = phase_kernels(main_path)
     # 6) object extraction and the backend
     backend_path = phase_backend_path(card)
-    # 7) the pipeline: change detection, the reconciler and the 4D map, run.main end to end
+    # 7) the pipeline: places, change detection, the reconciler, the 4D map
+    # and the evaluation, run.main end to end; A on its room grid
     pipeline_path = phase_pipeline_path(card)
+    kernels.append(phase_room_fixpoint(pipeline_path))
     # 8) kernel A at other rounds per step and tile shapes
     sweep = phase_sweep(main_path)
 

@@ -5,9 +5,10 @@ indoor scenes (a room, static objects with semantic labels, objects with
 presence intervals, humans walking along waypoint paths) and a camera orbit,
 rendered to depth / color / semantic-label images by sphere-tracing the scene
 SDF on the device, and the drifted odometry (`odometry_pose`, the same
-random walk as the reference: numpy's generator from the same seed). Sensor
-noise (the reference draws it with `jax.random`) is a later slice:
-`SyntheticSequenceConfig.noise` must stay None.
+random walk as the reference: numpy's generator from the same seed), and the
+ground-truth surface samples of the evaluation (`sample_scene_surface`, host
+numpy). Sensor noise (the reference draws it with `jax.random`) is a later
+slice: `SyntheticSequenceConfig.noise` must stay None.
 """
 
 from __future__ import annotations
@@ -328,3 +329,56 @@ def default_label_space() -> LabelSpace:
         object_labels=(TABLE, CHAIR, COOLER, BOXLBL, SHELF),
         dynamic_labels=(HUMAN,),
     )
+
+
+def sample_scene_surface(scene: Scene, t: float, n_points: int = 20000, seed: int = 0):
+    """GT surface samples at time t via rejection sampling + SDF projection.
+
+    Returns (points [N,3], labels [N]): background (room) + present objects.
+    Used as the evaluation ground-truth cloud. Host numpy on the scene's
+    arrays, drawn from numpy's generator with `seed`: the reference's
+    samples, bit for bit."""
+    rng = np.random.default_rng(seed)
+    kinds, centers, halfs, labels, colors, present = scene.host_arrays(t)
+    pts_all, lab_all = [], []
+    for i in range(len(kinds)):
+        if not present[i]:
+            continue
+        n = n_points // 2 if kinds[i] == ROOM else max(n_points // (2 * (len(kinds) - 1)), 200)
+        if kinds[i] == SPHERE:
+            d = rng.normal(size=(n, 3))
+            d /= np.linalg.norm(d, axis=1, keepdims=True)
+            p = centers[i] + d * halfs[i][0]
+        else:
+            h = halfs[i]
+            # sample box faces proportional to area
+            areas = np.array([h[1] * h[2], h[1] * h[2], h[0] * h[2], h[0] * h[2], h[0] * h[1], h[0] * h[1]])
+            face = rng.choice(6, size=n, p=areas / areas.sum())
+            u = rng.uniform(-1, 1, size=(n, 3)) * h
+            for k in range(3):
+                sel = face // 2 == k
+                u[sel, k] = np.where(face[sel] % 2 == 0, -h[k], h[k])
+            p = centers[i] + u
+        if kinds[i] == ROOM:
+            lab = np.full(len(p), scene.room_label)
+        else:
+            lab = np.full(len(p), labels[i])
+        pts_all.append(p)
+        lab_all.append(lab)
+    pts = np.concatenate(pts_all)
+    labs = np.concatenate(lab_all)
+    # drop points hidden inside other solids (e.g. object bottom inside floor)
+    keep = np.ones(len(pts), bool)
+    for i in range(len(kinds)):
+        if not present[i] or kinds[i] == ROOM:
+            continue
+        q = np.abs(pts - centers[i]) - halfs[i]
+        if kinds[i] == BOX:
+            inside = (q < -1e-3).all(axis=1)
+        else:
+            inside = np.linalg.norm(pts - centers[i], axis=1) < halfs[i][0] - 1e-3
+        keep &= ~inside
+    # drop points outside the room
+    qr = np.abs(pts - scene.room_center) - scene.room_half_extents
+    keep &= (qr <= 1e-3).all(axis=1)
+    return pts[keep], labs[keep]

@@ -8,6 +8,13 @@ with a halo, active tiles only, stopping at the fixpoint; see the note
 there); a CPU tensor goes to `propagate_labels_3d_plain`. There is no
 fallback from one to the other.
 
+`propagate_labels_3d_fixpoint` runs the same rounds until one changes
+nothing, as the room segmentation's `lax.while_loop` does
+(`khronos_tpu/stm/places.py::_room_blobs`): on a CUDA tensor it is kernel A
+in one launch with every cell's worth of rounds allowed (the kernel stops
+after the step holding the first round that changes nothing); on a CPU
+tensor, `propagate_labels_3d_fixpoint_plain`, a loop with the same exit.
+
 `launches` counts kernel launches: one per call.
 """
 
@@ -63,6 +70,33 @@ def propagate_labels_3d_cuda(
 ) -> torch.Tensor:
     """Kernel A on CUDA tensors (raises on anything else)."""
     return launch(labels, growable, iterations)[0]
+
+
+def propagate_labels_3d_fixpoint_plain(labels: torch.Tensor, growable: torch.Tensor):
+    """Plain PyTorch version of the fixpoint: rounds of propagate_labels_3d
+    until one returns its input. Returns (labels, rounds run, the last being
+    the one that changed nothing)."""
+    lab = torch.where(growable, labels, -1)
+    rounds = 0
+    while True:
+        nxt = torch.where(growable, torch.maximum(lab, max_pool3(lab, pad_value=-1)), -1)
+        rounds += 1
+        if torch.equal(nxt, lab):
+            return lab, rounds
+        lab = nxt
+
+
+def propagate_labels_3d_fixpoint(labels: torch.Tensor, growable: torch.Tensor) -> torch.Tensor:
+    """propagate_labels_3d run to its fixpoint. labels int32 [X, Y, Z] (-1 =
+    unlabeled), growable bool [X, Y, Z]."""
+    _check(labels, growable)
+    if labels.device.type == "cpu":
+        return propagate_labels_3d_fixpoint_plain(labels, growable)[0]
+    if labels.device.type != "cuda":
+        raise ValueError(f"propagate_labels_3d_fixpoint: unsupported device {labels.device}")
+    # after k rounds a cell holds the largest label within k steps of it in
+    # its component, so numel rounds always reach the fixpoint
+    return launch(labels, growable, labels.numel())[0]
 
 
 def n_tiles(shape) -> int:

@@ -7,12 +7,13 @@ pipeline + experiment manager, run) with config_utilities-style layering:
 overrides apply last. The same YAML builds both packages.
 
     python -m khronos_tpu_torch.run --config configs/office_synthetic.yaml \
-        pipeline.places=null run.evaluate=false run.export_viewer=false \
         run.output_dir=/tmp/office [--device cpu]
 
-Runs on CUDA unless `--device cpu`. The places layer, evaluation
-(`run.evaluate`) and the viewer export (`run.export_viewer`) are later
-slices of the port and raise NotImplementedError when asked for.
+Runs on CUDA unless `--device cpu`: the pipeline (places layer included),
+then the 4D viewer export (`run.export_viewer`) and, for synthetic data, the
+evaluation against the scene's ground truth (`run.evaluate`, which also
+writes gt.npz for `python -m khronos_tpu_torch.eval`). Only the synthetic
+dataset is ported; the others raise NotImplementedError.
 
 Top-level YAML keys:
   pipeline: PipelineConfig tree
@@ -24,6 +25,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import sys
 
 from khronos_tpu_torch import resolve_device
@@ -63,12 +65,6 @@ def main(argv=None):
     run_cfg = build(RunConfig, data.get("run", {}))
     ds_spec = dict(data.get("dataset", {"kind": "synthetic"}))
     kind = ds_spec.pop("kind", "synthetic")
-    if run_cfg.export_viewer:
-        raise NotImplementedError("the 4D viewer export is not ported yet (a later slice: eval/viewer.py); "
-                                  "set run.export_viewer=false")
-    if run_cfg.evaluate and kind == "synthetic":
-        raise NotImplementedError("the evaluation suite is not ported yet (a later slice: eval/); "
-                                  "set run.evaluate=false")
     device = resolve_device(args.device)
 
     from khronos_tpu_torch.data.datasets import make_dataset
@@ -95,6 +91,36 @@ def main(argv=None):
     print(f"running {len(frames)} frames on {device} ...", file=sys.stderr)
     out_dir = manager.run(frames, gts)
     print(f"outputs in {out_dir}", file=sys.stderr)
+
+    if run_cfg.export_viewer:
+        from khronos_tpu_torch.eval.viewer import export_html
+
+        html = os.path.join(out_dir, "viewer.html")
+        export_html(pipeline.map, html)
+        print(f"4D viewer: {html}", file=sys.stderr)
+
+    if run_cfg.evaluate and kind == "synthetic":
+        from khronos_tpu_torch.eval.pipeline_evaluator import (
+            PipelineEvaluator,
+            PipelineEvaluatorConfig,
+            SceneGroundTruth,
+            save_ground_truth,
+        )
+        from khronos_tpu_torch.eval.plotting import results_table, timing_table
+
+        gt_oracle = SceneGroundTruth(dataset.scene, dataset.duration)
+        # persist GT so `python -m khronos_tpu_torch.eval --map ...` can
+        # re-evaluate the saved run standalone (exp_pipeline.cpp analog)
+        save_ground_truth(
+            gt_oracle,
+            os.path.join(out_dir, "gt.npz"),
+            [s * 1e-9 for s in pipeline.map.stamps()],
+        )
+        ev = PipelineEvaluator(PipelineEvaluatorConfig(only_final=True), device=device)
+        ev.evaluate(pipeline.map, gt_oracle, os.path.join(out_dir, "results"))
+        print(results_table(os.path.join(out_dir, "results")))
+        print()
+        print(timing_table(os.path.join(out_dir, "timing")))
     return out_dir
 
 

@@ -9,8 +9,8 @@ structures; device kernels consume flat array views.
 
 Stamps are int64 nanoseconds.
 
-Host copy of `khronos_tpu/stm/scene_graph.py`. `SceneGraph.places` stays None
-until the places layer is ported. `MeshAccumulator` is the plain version of
+Host copy of `khronos_tpu/stm/scene_graph.py`. `SceneGraph.places` holds a
+`stm.places.PlacesLayer` when the pipeline builds one. `MeshAccumulator` is the plain version of
 the native accumulator (`khronos_tpu_torch/native.py`).
 """
 

@@ -3,10 +3,9 @@
 Port of the scene-graph part of `khronos_tpu/stm/serialization.py`
 (spark_dsg binary serialization + the reference's save layout,
 backend.cpp:255-313). The archive is the JAX package's, key for key and
-dtype for dtype (FORMAT_VERSION 1), so each package reads what the other
-writes. The places layer is not ported yet: a scene graph that carries one,
-or an archive that holds places keys, raises. The 4D-map archive
-(`.4dmap.npz`) is built from these arrays by `stm/spatio_temporal_map.py`.
+dtype for dtype (FORMAT_VERSION 1, the places layer included), so each
+package reads what the other writes. The 4D-map archive (`.4dmap.npz`) is
+built from these arrays by `stm/spatio_temporal_map.py`.
 """
 
 from __future__ import annotations
@@ -19,10 +18,6 @@ import numpy as np
 from khronos_tpu_torch.stm.scene_graph import AgentNode, KhronosObject, Mesh, SceneGraph
 
 FORMAT_VERSION = 1
-
-
-def _places_not_ported():
-    return NotImplementedError("the places layer is not ported yet (a later slice: stm/places.py)")
 
 
 def _mesh_arrays(prefix: str, mesh: Mesh) -> Dict[str, np.ndarray]:
@@ -48,8 +43,6 @@ def _mesh_from(prefix: str, data) -> Mesh:
 
 
 def scene_graph_arrays(dsg: SceneGraph, prefix: str = "") -> Dict[str, np.ndarray]:
-    if dsg.places is not None:
-        raise _places_not_ported()
     arrays = _mesh_arrays(f"{prefix}mesh/", dsg.mesh)
     arrays[f"{prefix}agents/stamps_ns"] = np.asarray(
         [a.stamp_ns for a in dsg.agents], np.int64
@@ -95,12 +88,18 @@ def scene_graph_arrays(dsg: SceneGraph, prefix: str = "") -> Dict[str, np.ndarra
     arrays[f"{prefix}objects_meta"] = np.frombuffer(
         json.dumps(meta).encode(), dtype=np.uint8
     )
+    if dsg.places is not None and dsg.places.nodes:
+        pl = dsg.places
+        arrays[f"{prefix}places/positions"] = np.stack([n.position for n in pl.nodes]).astype(np.float32)
+        arrays[f"{prefix}places/distances"] = np.asarray([n.distance for n in pl.nodes], np.float32)
+        arrays[f"{prefix}places/room_ids"] = np.asarray([n.room_id for n in pl.nodes], np.int32)
+        arrays[f"{prefix}places/edges"] = (
+            np.asarray(pl.edges, np.float32) if pl.edges else np.zeros((0, 3), np.float32)
+        )
     return arrays
 
 
 def scene_graph_from_arrays(data, prefix: str = "") -> SceneGraph:
-    if f"{prefix}places/positions" in data:
-        raise _places_not_ported()
     dsg = SceneGraph(mesh=_mesh_from(f"{prefix}mesh/", data))
     stamps = data[f"{prefix}agents/stamps_ns"]
     Rs = data[f"{prefix}agents/R"]
@@ -131,6 +130,17 @@ def scene_graph_from_arrays(data, prefix: str = "") -> SceneGraph:
             confidence=m["confidence"],
             first_detected_ns=int(m.get("first_detected_ns", -1)),
         )
+    if f"{prefix}places/positions" in data:
+        from khronos_tpu_torch.stm.places import PlaceNode, PlacesLayer
+
+        pl = PlacesLayer()
+        pos = data[f"{prefix}places/positions"]
+        dist = data[f"{prefix}places/distances"]
+        rooms = data[f"{prefix}places/room_ids"]
+        for i in range(len(pos)):
+            pl.nodes.append(PlaceNode(i, pos[i], float(dist[i]), int(rooms[i])))
+        pl.edges = [(int(a), int(b), float(c)) for a, b, c in data[f"{prefix}places/edges"]]
+        dsg.places = pl
     return dsg
 
 

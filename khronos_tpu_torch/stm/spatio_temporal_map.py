@@ -43,7 +43,7 @@ presence intervals.)
 Host copy of `khronos_tpu/stm/spatio_temporal_map.py`: the `.4dmap.npz`
 archive is the JAX package's key for key and dtype for dtype (version 4, and
 the legacy loader of versions 1-3), so each package reads what the other
-writes. Snapshots with a places layer raise until the places layer is ported.
+writes, places layers included.
 """
 
 from __future__ import annotations

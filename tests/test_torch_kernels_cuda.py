@@ -11,7 +11,8 @@ registers the marker that conftest.py registers otherwise.)
 
 `propagate_case`, `expected_rounds` and `active_tiles` are shared with
 tests/test_torch_ops.py, which holds a CPU model of kernel A's schedule
-against the same inputs, and with chip_smoke.py.
+against the same inputs, and with chip_smoke.py; `snake_case` and
+`fixpoint_rounds` with tests/test_torch_places.py and chip_smoke.py.
 """
 
 import numpy as np
@@ -74,6 +75,33 @@ def expected_rounds(lab, grow, iterations, depth=propagate.DEPTH):
             return min(iterations, -(-(k + 1) // depth) * depth)
         cur = nxt
     return iterations
+
+
+def snake_case(shape, pitch=8):
+    """(labels int32, growable bool) CPU tensors: a corridor that snakes
+    along x, lane after lane along y, on every z (lanes pitch - 2 cells wide,
+    walls 2 cells thick, joined at alternate ends), every corridor cell
+    seeded with its linear index + 1, the room segmentation's seeding. The
+    largest label travels the whole corridor: rounds grow with its length."""
+    X, Y, Z = shape
+    grow = np.zeros(shape, bool)
+    lanes = list(range(0, Y - 1, pitch))
+    for k, y0 in enumerate(lanes):
+        grow[:, y0: y0 + pitch - 2, :] = True
+        if k + 1 < len(lanes):  # the joint to the next lane, at alternate ends
+            x = slice(X - 2, X) if k % 2 == 0 else slice(0, 2)
+            grow[x, y0: y0 + pitch, :] = True
+    seeds = np.arange(1, grow.size + 1, dtype=np.int32).reshape(shape)
+    return torch.from_numpy(np.where(grow, seeds, -1).astype(np.int32)), torch.from_numpy(grow)
+
+
+def fixpoint_rounds(plain_rounds, grow, numel, depth=propagate.DEPTH):
+    """Rounds kernel A reports at the fixpoint: the plain loop's rounds (the
+    last of them changing nothing), in whole steps of `depth`, at most numel;
+    none without a growable cell."""
+    if numel <= 0 or not bool(grow.any()):
+        return 0
+    return min(numel, -(-plain_rounds // depth) * depth)
 
 
 def active_tiles(grow) -> int:
@@ -212,3 +240,28 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     img = torch.zeros((10, 2), device=cuda)
     with pytest.raises(ValueError):
         gather.gather_rows(img.t().contiguous().t(), torch.zeros(3, dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.parametrize("case", ["snake", "rooms", "odd"])
+def test_propagate_fixpoint_wrapper(cuda, case):
+    """propagate_labels_3d_fixpoint on the card: kernel A in one launch, to
+    the fixpoint, bit for bit against the plain loop, with the rounds it
+    reports against the loop's count."""
+    if case == "snake":  # hundreds of rounds along the corridor
+        lab, grow = snake_case((144, 144, 16), pitch=16)
+    elif case == "rooms":  # blobs of free space, seeded as the room segmentation seeds them
+        g = torch.Generator().manual_seed(4)
+        grow = torch.rand((64, 80, 16), generator=g) < 0.6
+        lab = torch.where(grow, torch.arange(1, grow.numel() + 1, dtype=torch.int32).view(grow.shape), -1)
+    else:  # Z below one tile
+        lab, grow = propagate_case((37, 53, 5), "mid", seed=1)
+    want, plain_rounds = propagate.propagate_labels_3d_fixpoint_plain(lab, grow)
+    before = propagate.launches
+    got = propagate.propagate_labels_3d_fixpoint(lab.to(cuda), grow.to(cuda))
+    torch.cuda.synchronize()
+    assert propagate.launches - before == 1
+    assert torch.equal(got.cpu(), want)
+    _, _, rounds = _run_kernel_a(lab.to(cuda), grow.to(cuda), lab.numel())
+    assert rounds == fixpoint_rounds(plain_rounds, grow, lab.numel())
+    if case == "snake":
+        assert plain_rounds > 300

@@ -26,12 +26,12 @@ from khronos_tpu_torch.changes.detectors import SequentialChangeDetector, Sequen
 from khronos_tpu_torch.changes.ray_verificator import RayVerificator, RayVerificatorConfig
 from khronos_tpu_torch.changes.reconciler import Reconciler, ReconcilerConfig
 from khronos_tpu_torch.config import build, to_dict
-from khronos_tpu_torch.eval.evaluators import min_distances
+from khronos_tpu_torch.eval.evaluators import evaluate_mesh, min_distances
+from khronos_tpu_torch.eval.pipeline_evaluator import PipelineEvaluator
+from khronos_tpu_torch.stm.places import PlacesExtractor
 from khronos_tpu_torch.pipeline.pipeline import ExperimentConfig, ExperimentManager, KhronosPipeline, PipelineConfig
 from khronos_tpu_torch.data import synthetic as tsyn
 from khronos_tpu_torch.data.datasets import SyntheticDataset, make_dataset
-from khronos_tpu_torch.stm import serialization
-from khronos_tpu_torch.stm.scene_graph import SceneGraph
 from khronos_tpu_torch.map import active_volume as tav
 from khronos_tpu_torch.utils.host_copy import HostCopy
 
@@ -63,7 +63,8 @@ def test_imports_no_jax():
         "          'utils.intervals', 'data.datasets', 'active_window.object_extraction',\n"
         "          'changes.change_state', 'changes.ray_verificator', 'changes.change_detector',\n"
         "          'changes.detectors', 'changes.reconciler', 'eval.evaluators', 'stm.spatio_temporal_map',\n"
-        "          'pipeline.pipeline', 'run'):\n"
+        "          'pipeline.pipeline', 'run', 'stm.places', 'eval.pipeline_evaluator', 'eval.plotting',\n"
+        "          'eval.viewer', 'eval.ground_truth', 'eval.__main__'):\n"
         "    assert 'khronos_tpu_torch.' + m in mods, m\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"
@@ -102,14 +103,20 @@ def test_entry_points_need_a_gpu_unless_told_cpu(monkeypatch):
                  lambda d: SequentialChangeDetector(SequentialChangeDetectorConfig(), device=d),
                  lambda d: Reconciler(ReconcilerConfig(), device=d),
                  lambda d: min_distances(np.zeros((1, 3)), np.ones((1, 3)), device=d),
-                 lambda d: KhronosPipeline(build(PipelineConfig, pipe_cfg), cam, device=d)):
+                 lambda d: evaluate_mesh(np.zeros((1, 3)), np.ones((1, 3)), device=d),
+                 lambda d: PlacesExtractor(device=d),
+                 lambda d: PipelineEvaluator(device=d),
+                 lambda d: KhronosPipeline(build(PipelineConfig, pipe_cfg), cam, device=d),
+                 lambda d: KhronosPipeline(build(PipelineConfig, {**pipe_cfg, "places": {}}), cam, device=d)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make(None)
         make("cpu")
-    run_args = ["--config", str(ROOT / "configs" / "office_synthetic.yaml"), "pipeline.places=null",
-                "run.evaluate=false", "run.export_viewer=false"]
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        trun.main(run_args)
+        trun.main(["--config", str(ROOT / "configs" / "office_synthetic.yaml")])
+    from khronos_tpu_torch.eval.__main__ import main as eval_main
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        eval_main(["--map", str(ROOT / "final.4dmap.npz")])
 
 
 def _one_node_graph():
@@ -145,20 +152,17 @@ def _run_cli(*overrides):
 
 
 UNPORTED_OPTIONS = {
-    "places_default": lambda: _pipeline({"places": {}}),
-    "places_configured": lambda: _pipeline({"places": {"voxel_size": 0.2}}),
     "async_stages": lambda: ExperimentManager(ExperimentConfig(output_dir=tempfile.mkdtemp()),
                                               _pipeline()).run([], async_stages=True),
     "start_async": lambda: _pipeline().start_async(),
+    "take_places_update": lambda: _pipeline({"places": {}}).take_places_update(),
+    "defer_cd_with_places": lambda: _pipeline({"places": {}}).process_frame(None, defer_cd=True),
     "submit_frame": lambda: _pipeline().submit_frame(None),
     "checkpoint": lambda: _pipeline().checkpoint(tempfile.mkdtemp()),
     "restore": lambda: KhronosPipeline.restore(tempfile.mkdtemp()),
     "checkpoint_every_n_frames": lambda: ExperimentManager(
         ExperimentConfig(output_dir=tempfile.mkdtemp(), checkpoint_every_n_frames=5), _pipeline()),
-    "evaluate": lambda: _run_cli("pipeline.places=null", "run.export_viewer=false"),
-    "export_viewer": lambda: _run_cli("pipeline.places=null", "run.evaluate=false"),
-    "cli_places": lambda: _run_cli("run.evaluate=false", "run.export_viewer=false", "dataset.duration=0.1",
-                                   "dataset.height=8", "dataset.width=8"),
+    "cli_directory_dataset": lambda: _run_cli("dataset.kind=directory"),
     "n_devices": lambda: _window({"n_devices": 1}),
     "modular": lambda: _window({"fused": False}),
     "solver_schur": lambda: Backend(build(BackendConfig, {"solver": "schur"}), device="cpu"),
@@ -175,8 +179,8 @@ def test_unported_options_raise(option):
 
 
 def test_modular_parts_and_extraction_raise():
-    """The modular detectors, and the data sources and scene-graph layers
-    that later slices port, raise."""
+    """The modular detectors, and the data sources that later slices port,
+    raise."""
     cfg = build(ActiveWindowConfig, {**BENCH, "volumetric_map": {"grid_shape": [16, 16, 8]}})
     cam = tsyn.SyntheticSequence(tsyn.office_scene(), tsyn.SyntheticSequenceConfig(height=8, width=8), device="cpu").camera
     for plugin, args in ((cfg.motion_detector, (cfg.volumetric_map, cam)),
@@ -188,10 +192,6 @@ def test_modular_parts_and_extraction_raise():
             make_dataset(kind)
     with pytest.raises(NotImplementedError):
         SyntheticDataset(scene_name="apartment", height=8, width=8, device="cpu")
-    with pytest.raises(NotImplementedError):
-        serialization.scene_graph_arrays(SceneGraph(places=object()))
-    with pytest.raises(NotImplementedError):
-        serialization.scene_graph_from_arrays({"places/positions": np.zeros((0, 3))})
 
 
 def test_host_copy_on_cpu_is_ready():

@@ -25,6 +25,8 @@ from khronos_tpu_torch.stm.scene_graph import AgentNode as TAgent
 from khronos_tpu_torch.stm.scene_graph import KhronosObject as TObject
 from khronos_tpu_torch.stm.scene_graph import Mesh as TMesh
 from khronos_tpu_torch.stm.scene_graph import SceneGraph as TSceneGraph
+from khronos_tpu_torch.stm.places import PlaceNode as TPlaceNode
+from khronos_tpu_torch.stm.places import PlacesLayer as TPlacesLayer
 
 H, W = 48, 64  # small frames: every test stays well inside the CPU budget
 
@@ -123,14 +125,24 @@ def torch_graph(graph) -> TGraph:
     return TGraph(**{f.name: list(getattr(graph, f.name)) for f in dataclasses.fields(TGraph)})
 
 
+def torch_places(layer) -> TPlacesLayer:
+    """khronos_tpu PlacesLayer (or None) -> the port's, arrays copied."""
+    if layer is None:
+        return None
+    return TPlacesLayer(
+        nodes=[TPlaceNode(n.place_id, np.array(n.position), n.distance, n.room_id) for n in layer.nodes],
+        edges=list(layer.edges),
+    )
+
+
 def torch_scene_graph(dsg) -> TSceneGraph:
-    """khronos_tpu SceneGraph (no places layer) -> the port's, arrays copied,
-    the backend's opt_epoch attribute carried over."""
-    assert dsg.places is None
+    """khronos_tpu SceneGraph -> the port's, arrays copied, the places layer
+    converted, the backend's opt_epoch attribute carried over."""
     out = TSceneGraph(
         mesh=TMesh(**{f.name: np.array(getattr(dsg.mesh, f.name)) for f in dataclasses.fields(TMesh)}),
         objects={k: torch_object(o) for k, o in dsg.objects.items()},
         agents=[TAgent(a.stamp_ns, np.array(a.R_w_b), np.array(a.t_w_b), a.key) for a in dsg.agents],
+        places=torch_places(dsg.places),
     )
     if hasattr(dsg, "opt_epoch"):
         out.opt_epoch = dsg.opt_epoch
