@@ -21,8 +21,11 @@ integers, and every reduction stays on the device. Motion-region growing goes
 through kernel A (`ops/propagate.py`), the per-voxel payload lookup of
 `integrate_frame` through kernel B (`ops/gather.py`).
 
-Closed-set only in this slice: the open-set `InstanceForwarding` branch and
-the device-mesh (`mesh=`) variant raise NotImplementedError.
+With an `InstanceForwardingConfig` the step runs the open-set branch: the
+upstream instance image and per-instance embeddings go in, the count,
+volume and background-prompt filters run on the device, and the packed
+'category' slot carries the original instance index. The device-mesh
+(`mesh=`) variant raises NotImplementedError (a later slice).
 """
 
 from __future__ import annotations
@@ -36,6 +39,10 @@ import torch
 from khronos_tpu_torch.active_window.motion_detection import (
     FreeSpaceMotionDetectorConfig,
     MeasurementCluster,
+)
+from khronos_tpu_torch.active_window.instance_forwarding import (
+    OPENSET_CATEGORY,
+    InstanceForwardingConfig,
 )
 from khronos_tpu_torch.active_window.object_detection import (
     ConnectedSemanticsConfig,
@@ -72,11 +79,18 @@ def make_frame_step(
     label_space: LabelSpace,
     detection_stride: int = 1,
     crop: bool = True,
+    background_embeddings: Optional[np.ndarray] = None,
     mesh=None,
 ):
     """Build the fused step:
     step(state, depth, color, labels, R_w_c, t_w_c, t_now)
       -> (state', dynamic_image, object_image, packed_stats).
+
+    Open-set: when od_cfg is an InstanceForwardingConfig the step instead
+    takes step(state, depth, color, labels, instances, features, R, t, t_now)
+    with externally-segmented instances [H, W] (0 = none) and per-instance
+    embeddings [MC, D] (a tensor on the state's device);
+    `background_embeddings` [B, D] enable the on-device background filter.
 
     depth/color/labels are tensors on the state's device; R_w_c/t_w_c host
     float32; t_now seconds. The step updates `state`'s grids IN PLACE where
@@ -93,17 +107,22 @@ def make_frame_step(
             "a device-mesh (sharded) frame step is not ported yet (a later slice: "
             "parallel/sharding.py)"
         )
-    if od_cfg is not None and not isinstance(od_cfg, ConnectedSemanticsConfig):
-        raise NotImplementedError(
-            f"object detector {type(od_cfg).__name__} is not ported yet; open-set "
-            "InstanceForwarding is a later slice"
-        )
+    if od_cfg is not None and not isinstance(od_cfg, (ConnectedSemanticsConfig, InstanceForwardingConfig)):
+        raise NotImplementedError(f"the fused step has no branch for object detector {type(od_cfg).__name__}")
+    openset = isinstance(od_cfg, InstanceForwardingConfig)
+    bg_emb = None
+    if openset:
+        if od_cfg.max_instances > MC:
+            raise ValueError(f"max_instances {od_cfg.max_instances} > fused cap {MC}")
+        if background_embeddings is not None and len(background_embeddings):
+            bg = np.asarray(background_embeddings, np.float32)
+            bg_emb = torch.from_numpy(bg / np.maximum(np.linalg.norm(bg, axis=-1, keepdims=True), 1e-9))
     is_object_lut = torch.from_numpy(label_space.is_object_lut())
     is_dynamic_lut = torch.from_numpy(label_space.is_dynamic_lut())
     shape = tuple(vol_cfg.grid_shape)
     md_enabled = md_cfg is not None
     seed_dyn = md_enabled and md_cfg.seed_dynamic_labels
-    od_enabled = od_cfg is not None
+    od_enabled = od_cfg is not None and not openset
     merge_dilation = max(0, (md_cfg.min_separation_distance - 1) if md_enabled else 0)
     s = int(detection_stride)
     if camera.height % s or camera.width % s:
@@ -121,7 +140,7 @@ def make_frame_step(
     )
     md_min_px = max(1, round(md_cfg.min_cluster_size / s2)) if md_enabled else 0
     md_max_px = max(1, round(md_cfg.max_cluster_size / s2)) if md_enabled else 0
-    od_min_px = max(1, round(od_cfg.min_cluster_size / s2)) if od_enabled else 0
+    od_min_px = max(1, round(od_cfg.min_cluster_size / s2)) if od_cfg is not None else 0
     max_r = min(camera.max_range, md_cfg.max_range if md_enabled else camera.max_range)
 
     # all grid work runs in a camera-centered crop: every voxel within
@@ -138,6 +157,7 @@ def make_frame_step(
                 torch.arange(n_crop, dtype=torch.int32, device=dev).view(crop),
                 is_object_lut.to(dev),
                 is_dynamic_lut.to(dev),
+                bg_emb.to(dev) if bg_emb is not None else None,
             )
         return consts[key]
 
@@ -147,9 +167,9 @@ def make_frame_step(
     def _lut(lut, lab):
         return (lab >= 0) & lut[lab.clamp(0, lut.shape[0] - 1).long()]
 
-    def step(state, depth, color, labels, R_w_c, t_w_c, t_now):
+    def _body(state, depth, color, labels, instances, features, R_w_c, t_w_c, t_now):
         dev = state.tsdf.device
-        lin, obj_lut, dyn_lut = _consts(dev)
+        lin, obj_lut, dyn_lut, bg = _consts(dev)
         depth_d = depth[::s, ::s]
         labels_d = labels[::s, ::s]
         H, W = depth_d.shape
@@ -244,6 +264,22 @@ def make_frame_step(
             s_keep = s_counts >= od_min_px
             object_image, s_ids = cl.filter_and_renumber(sem_compact, s_keep)
             s_pts, _ = cl.cluster_point_samples(sem_compact, points_w, K_SAMPLES, MC)
+        elif openset:
+            # -------- open-set instance forwarding (device-side filters) ----
+            inst_d = instances[::s, ::s]
+            os_valid = (depth_d > camera.min_range) & (depth_d <= min(camera.max_range, od_cfg.max_range))
+            sem_compact = torch.where(os_valid & (inst_d >= 1) & (inst_d <= MC), inst_d - 1, -1)
+            s_counts, s_sums, s_bmin, s_bmax = cl.cluster_stats(sem_compact, points_w, max_clusters=MC)
+            vol = torch.where(s_counts > 0, (s_bmax - s_bmin).clamp_min(0.0).prod(dim=-1), 0.0)
+            s_keep = (s_counts >= od_min_px) & (vol >= od_cfg.min_bbox_volume) & (vol <= od_cfg.max_bbox_volume)
+            if bg is not None:
+                fn = features / torch.linalg.vector_norm(features, dim=-1, keepdim=True).clamp_min(1e-9)
+                s_keep = s_keep & ((fn @ bg.T).amax(dim=-1) <= od_cfg.max_background_score)
+            object_image, s_ids = cl.filter_and_renumber(sem_compact, s_keep)
+            # 'category' slot carries the ORIGINAL instance index (the host
+            # maps it to the frame's feature row and OPENSET_CATEGORY)
+            s_cat = torch.arange(MC, dtype=torch.int32, device=dev)
+            s_pts, _ = cl.cluster_point_samples(sem_compact, points_w, K_SAMPLES, MC)
         else:
             object_image = torch.zeros((H, W), dtype=torch.int32, device=dev)
             s_counts = s_ids = zeros_i
@@ -276,14 +312,22 @@ def make_frame_step(
         )
         return state, dynamic_image, object_image, packed
 
+    if openset:
+        def step(state, depth, color, labels, instances, features, R_w_c, t_w_c, t_now):
+            return _body(state, depth, color, labels, instances, features, R_w_c, t_w_c, t_now)
+    else:
+        def step(state, depth, color, labels, R_w_c, t_w_c, t_now):
+            return _body(state, depth, color, labels, None, None, R_w_c, t_w_c, t_now)
     return step
 
 
-def unpack_stats(packed: np.ndarray):
+def unpack_stats(packed: np.ndarray, features: np.ndarray = None, openset: bool = False):
     """Host-side unpack -> (dyn_clusters, sem_clusters, dyn_points, sem_points).
 
     Cluster lists contain MeasurementCluster for valid (renumbered id > 0)
-    entries; points dict maps output id -> [K, 3] subsample."""
+    entries; points dict maps output id -> [K, 3] subsample. With
+    openset=True the sem 'category' slot is the original instance index:
+    clusters get OPENSET_CATEGORY and feature = features[index]."""
     off = 0
     d_stats = packed[off : off + MC * DYN_F].reshape(MC, DYN_F)
     off += MC * DYN_F
@@ -313,6 +357,12 @@ def unpack_stats(packed: np.ndarray):
         out_id = int(s_stats[k, 11])
         if out_id > 0:
             n = max(int(s_stats[k, 9]), 1)
+            cat = int(s_stats[k, 10])
+            feat = None
+            if openset:
+                if features is not None and 0 <= cat < len(features):
+                    feat = np.asarray(features[cat], np.float32)
+                cat = OPENSET_CATEGORY
             sem_clusters.append(
                 MeasurementCluster(
                     cluster_id=out_id,
@@ -321,7 +371,8 @@ def unpack_stats(packed: np.ndarray):
                     centroid=s_stats[k, 0:3] / n,
                     bbox_min=s_stats[k, 3:6],
                     bbox_max=s_stats[k, 6:9],
-                    category_id=int(s_stats[k, 10]),
+                    category_id=cat,
+                    feature=feat,
                 )
             )
             sem_points[out_id] = s_pts[k, : min(int(s_stats[k, 9]), K_SAMPLES)]

@@ -2,10 +2,12 @@
 
 Port of `khronos_tpu/data/datasets.py` as far as the synthetic source goes:
 a dataset yields (FrameData, gt_pose or None). `SyntheticDataset` renders the
-office scene (clean frames) on the device and poses each frame at its
-drifted odometry, with the ground-truth pose beside it. Open-set outputs, the
-other scenes, `DirectoryDataset`, `TumRGBDDataset` and rosbag input are later
-slices of the port and raise NotImplementedError.
+office scene, or the apartment for every other scene name (the reference's
+rule), as clean frames on the device and poses each frame at its drifted
+odometry, with the ground-truth pose beside it; with `openset=True` each
+frame also carries the instance image and the per-instance embeddings.
+`DirectoryDataset`, `TumRGBDDataset` and rosbag input are later slices of
+the port and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -38,11 +40,7 @@ class SyntheticDataset(Dataset):
         device="cpu" (raises when no GPU is visible)."""
         from khronos_tpu_torch.data import synthetic as syn
 
-        if scene_name != "office":
-            raise NotImplementedError(f"scene '{scene_name}' is not ported yet (only 'office')")
-        if openset:
-            raise NotImplementedError("open-set synthetic frames are not ported yet (a later slice)")
-        self.scene = syn.office_scene(duration)
+        self.scene = syn.office_scene(duration) if scene_name == "office" else syn.apartment_scene(duration)
         f = width * 0.625
         self.seq = syn.SyntheticSequence(
             self.scene,
@@ -70,6 +68,8 @@ class SyntheticDataset(Dataset):
                 labels=f["labels"],
                 R_w_c=np.asarray(R_odo, np.float32),
                 t_w_c=np.asarray(t_odo, np.float32),
+                instances=f["instances"] if self.openset else None,
+                label_features=f["features"] if self.openset else None,
             )
             yield frame, (f["R_gt"], f["t_gt"])
 

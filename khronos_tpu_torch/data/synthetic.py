@@ -1,13 +1,16 @@
 """Synthetic scene generator + analytic RGB-D-semantic renderer (fake sensor).
 
 Port of the clean-frame part of `khronos_tpu/data/synthetic.py`: parametric
-indoor scenes (a room, static objects with semantic labels, objects with
-presence intervals, humans walking along waypoint paths) and a camera orbit,
-rendered to depth / color / semantic-label images by sphere-tracing the scene
-SDF on the device, and the drifted odometry (`odometry_pose`, the same
-random walk as the reference: numpy's generator from the same seed), and the
-ground-truth surface samples of the evaluation (`sample_scene_surface`, host
-numpy). Sensor noise (the reference draws it with `jax.random`) is a later
+indoor scenes (the office, the apartment and the four-room hard scene: a
+room, static objects with semantic labels, objects with presence intervals,
+humans walking along waypoint paths) and a camera orbit or waypoint tour,
+rendered to depth / color / semantic-label / instance images by
+sphere-tracing the scene SDF on the device, the open-set embeddings
+(`instance_features`, `background_embeddings`: numpy's generators from the
+reference's seeds, bit for bit), the drifted odometry (`odometry_pose`, the
+same random walk as the reference: numpy's generator from the same seed), and
+the ground-truth surface samples of the evaluation (`sample_scene_surface`,
+host numpy). Sensor noise (the reference draws it with `jax.random`) is a later
 slice: `SyntheticSequenceConfig.noise` must stay None.
 """
 
@@ -232,24 +235,48 @@ class SyntheticSequence:
         pose (host float32) + stamp."""
         t = i / self.config.fps
         R, pos = self.pose_at(t)
-        depth, label_img, color_img, _, _ = _render(
+        depth, label_img, color_img, hit_prim, hit_ok = _render(
             *self.scene.device_arrays(t, self.device),
             self.camera.pixel_rays(self.device),
             R,
             pos,
             self.config.max_range,
         )
+        # open-set outputs: stable instance ids (primitive index, 0 = room/bg)
+        # + synthetic per-instance embedding vectors (fixed unit vectors per
+        # primitive, a stand-in for CLIP features from semantic_inference)
+        instances = torch.where(hit_ok & (hit_prim > 0), hit_prim, 0)
         return {
             "stamp_ns": self.frame_stamp_ns(i),
             "t": t,
             "depth": depth,
             "labels": label_img.to(torch.int32),
             "color": color_img,
+            "instances": instances.to(torch.int32),
+            "features": self.instance_features(),
             "R_w_c": R,
             "t_w_c": pos,
             "R_gt": R,
             "t_gt": pos,
         }
+
+    def instance_features(self, dim: int = 32) -> np.ndarray:
+        """Deterministic unit embedding per primitive (row i = instance i+1)."""
+        if not hasattr(self, "_feat_cache"):
+            rng = np.random.default_rng(1234)
+            n = len(self.scene.primitives)
+            f = rng.normal(size=(n, dim)).astype(np.float32)
+            f /= np.linalg.norm(f, axis=1, keepdims=True)
+            self._feat_cache = f
+        return self._feat_cache
+
+    def background_embeddings(self, dim: int = 32) -> np.ndarray:
+        """Fake background-prompt embeddings (near the room's visual feature
+        space): vectors orthogonal-ish to object features."""
+        rng = np.random.default_rng(4321)
+        f = rng.normal(size=(4, dim)).astype(np.float32)
+        f /= np.linalg.norm(f, axis=1, keepdims=True)
+        return f
 
     def odometry_pose(self, i: int):
         """Drifted odometry (for backend testing): GT + accumulated noise."""
@@ -323,12 +350,255 @@ def office_scene(duration: float = 30.0) -> Scene:
     return Scene(room_half_extents=half, room_center=center, primitives=prims)
 
 
+def apartment_scene(duration: float = 20.0) -> Scene:
+    """Smaller static-heavy scene (tesse_cd apartment analog): no humans."""
+    half = np.array([3.5, 3.0, 1.4], np.float32)
+    center = np.array([0.0, 0.0, 1.4], np.float32)
+    prims = [
+        Primitive(
+            kind=BOX,
+            center=np.array([2.6, 1.8, 0.4], np.float32),
+            half_extents=np.array([0.5, 0.4, 0.4], np.float32),
+            label=TABLE,
+            color=np.array([0.6, 0.4, 0.2], np.float32),
+            name="table_1",
+        ),
+        Primitive(
+            kind=SPHERE,
+            center=np.array([-2.4, -1.8, 0.4], np.float32),
+            half_extents=np.array([0.4, 0.4, 0.4], np.float32),
+            label=BOXLBL,
+            color=np.array([0.8, 0.7, 0.2], np.float32),
+            name="ball_1",
+        ),
+        Primitive(
+            kind=BOX,
+            center=np.array([0.0, 2.6, 0.8], np.float32),
+            half_extents=np.array([0.7, 0.3, 0.8], np.float32),
+            label=SHELF,
+            color=np.array([0.4, 0.3, 0.2], np.float32),
+            name="shelf_1",
+        ),
+    ]
+    return Scene(room_half_extents=half, room_center=center, primitives=prims)
+
+
 def default_label_space() -> LabelSpace:
     return LabelSpace(
         num_classes=len(LABEL_NAMES),
         object_labels=(TABLE, CHAIR, COOLER, BOXLBL, SHELF),
         dynamic_labels=(HUMAN,),
     )
+
+
+# ----------------------------------------------------------------------------
+# Hard-mode multi-room scene + waypoint tour (the uHumans2-office-class
+# difficulty tier: multi-room and cluttered, khronos_eval/README.md:13-16)
+# ----------------------------------------------------------------------------
+
+
+def hard_scene(duration: float = 60.0) -> Scene:
+    """Four-room flat (16 x 12 m) with interior walls + doorways, 32 object
+    instances including compound (multi-primitive) and spherical shapes,
+    near-duplicate same-class neighbors, occluding clutter (pillars, stacked
+    boxes, under-desk boxes), SIX long-term changes (removals, additions, a
+    MOVED object = disappear at A + appear at B, and a removal in a
+    partially-viewed corner), and four humans on crossing waypoint paths
+    through the doorways. GT protocol mirrors the tesse ground truth's: structure
+    primitives belong to the background; `group`ed primitives are one
+    instance."""
+    half = np.array([8.0, 6.0, 1.5], np.float32)
+    center = np.array([0.0, 0.0, 1.5], np.float32)
+    t1, t2, t3 = 0.42 * duration, 0.50 * duration, 0.58 * duration
+
+    def box(name, label, cx, cy, cz, hx, hy, hz, color, **kw):
+        return Primitive(
+            kind=BOX, center=np.array([cx, cy, cz], np.float32),
+            half_extents=np.array([hx, hy, hz], np.float32),
+            label=label, color=np.asarray(color, np.float32), name=name, **kw,
+        )
+
+    def sphere(name, label, cx, cy, cz, r, color, **kw):
+        return Primitive(
+            kind=SPHERE, center=np.array([cx, cy, cz], np.float32),
+            half_extents=np.array([r, r, r], np.float32),
+            label=label, color=np.asarray(color, np.float32), name=name, **kw,
+        )
+
+    wallc = [0.75, 0.73, 0.7]
+    prims = [
+        # interior walls: x=0 spine (doorways at y ~ +-3), y=0 spine
+        # (doorways at x ~ +-4), all structure (background)
+        box("wall_x_s", 0, 0.0, -4.85, 1.5, 0.1, 1.15, 1.5, wallc, structure=True),
+        box("wall_x_m", 0, 0.0, 0.0, 1.5, 0.1, 2.3, 1.5, wallc, structure=True),
+        box("wall_x_n", 0, 0.0, 4.85, 1.5, 0.1, 1.15, 1.5, wallc, structure=True),
+        # y=0 spine in two segments per side, leaving 1.4 m doorways at
+        # x in [-5.0,-3.6] and [3.6,5.0] (north and south stay separate
+        # free-space components; the tour crosses at x=+-4.0 and the humans
+        # at x=+-4.6, both in-doorway)
+        box("wall_y_w", 0, -6.5, 0.0, 1.5, 1.5, 0.1, 1.5, wallc, structure=True),
+        box("wall_y_w2", 0, -1.825, 0.0, 1.5, 1.775, 0.1, 1.5, wallc, structure=True),
+        box("wall_y_e", 0, 6.5, 0.0, 1.5, 1.5, 0.1, 1.5, wallc, structure=True),
+        box("wall_y_e2", 0, 1.825, 0.0, 1.5, 1.775, 0.1, 1.5, wallc, structure=True),
+        # occluding pillars
+        box("pillar_nw", 0, -2.0, 4.0, 1.5, 0.22, 0.22, 1.5, wallc, structure=True),
+        box("pillar_se", 0, 2.0, -4.0, 1.5, 0.22, 0.22, 1.5, wallc, structure=True),
+
+        # ---- SW room (x<0, y<0): 9 instances -------------------------------
+        # compound table: top + 2 legs (one GT instance)
+        box("sw_table_top", TABLE, -5.5, -3.0, 0.72, 0.7, 0.45, 0.05, [0.6, 0.4, 0.2], group="sw_table"),
+        box("sw_table_leg1", TABLE, -6.1, -3.0, 0.34, 0.06, 0.4, 0.34, [0.5, 0.35, 0.18], group="sw_table"),
+        box("sw_table_leg2", TABLE, -4.9, -3.0, 0.34, 0.06, 0.4, 0.34, [0.5, 0.35, 0.18], group="sw_table"),
+        # near-duplicate chairs, adjacent
+        box("sw_chair_a", CHAIR, -5.8, -2.1, 0.35, 0.25, 0.25, 0.35, [0.2, 0.3, 0.8]),
+        box("sw_chair_b", CHAIR, -5.15, -2.1, 0.35, 0.25, 0.25, 0.35, [0.22, 0.32, 0.78]),
+        box("sw_chair_removed", CHAIR, -6.6, -4.6, 0.35, 0.28, 0.28, 0.35, [0.2, 0.35, 0.75],
+            t_disappear=t1),
+        box("sw_shelf", SHELF, -7.6, -1.2, 0.9, 0.3, 0.8, 0.9, [0.4, 0.3, 0.2]),
+        # stacked box clutter (2 instances, stacked -> segmentation stress)
+        box("sw_box_lo", BOXLBL, -2.6, -4.9, 0.3, 0.3, 0.3, 0.3, [0.8, 0.7, 0.2]),
+        box("sw_box_hi", BOXLBL, -2.6, -4.9, 0.84, 0.22, 0.22, 0.22, [0.75, 0.65, 0.25]),
+        sphere("sw_ball", BOXLBL, -2.0, -2.6, 0.28, 0.28, [0.85, 0.5, 0.2]),
+
+        # ---- NW room (x<0, y>0): 6 instances -------------------------------
+        box("nw_desk_top", TABLE, -6.0, 3.5, 0.72, 0.8, 0.4, 0.05, [0.55, 0.4, 0.25], group="nw_desk"),
+        box("nw_desk_leg1", TABLE, -6.7, 3.5, 0.34, 0.06, 0.35, 0.34, [0.5, 0.35, 0.2], group="nw_desk"),
+        box("nw_desk_leg2", TABLE, -5.3, 3.5, 0.34, 0.06, 0.35, 0.34, [0.5, 0.35, 0.2], group="nw_desk"),
+        box("nw_chair", CHAIR, -6.0, 2.6, 0.35, 0.25, 0.25, 0.35, [0.25, 0.3, 0.7]),
+        # near-duplicate coolers
+        box("nw_cooler_a", COOLER, -3.1, 5.2, 0.45, 0.25, 0.25, 0.45, [0.2, 0.7, 0.8]),
+        box("nw_cooler_b", COOLER, -2.3, 5.2, 0.45, 0.25, 0.25, 0.45, [0.22, 0.68, 0.82]),
+        # removal in a PARTIALLY-VIEWED corner (behind the tour's gaze, near
+        # the NW corner; the pillar occludes it from part of the pass)
+        box("nw_shelf_removed", SHELF, -7.5, 5.3, 0.9, 0.3, 0.6, 0.9, [0.38, 0.28, 0.22],
+            t_disappear=t2),
+        # under-desk clutter
+        box("nw_underdesk_box", BOXLBL, -6.0, 3.5, 0.22, 0.2, 0.2, 0.22, [0.8, 0.72, 0.3]),
+
+        # ---- NE room (x>0, y>0): 8 instances -------------------------------
+        # compound shelf unit: two boards + back panel (one instance)
+        box("ne_shelf_b1", SHELF, 7.55, 1.5, 0.5, 0.3, 0.8, 0.05, [0.42, 0.3, 0.2], group="ne_shelf"),
+        box("ne_shelf_b2", SHELF, 7.55, 1.5, 1.05, 0.3, 0.8, 0.05, [0.42, 0.3, 0.2], group="ne_shelf"),
+        box("ne_shelf_back", SHELF, 7.85, 1.5, 0.78, 0.05, 0.8, 0.78, [0.38, 0.27, 0.18], group="ne_shelf"),
+        box("ne_cooler_added", COOLER, 5.0, 5.0, 0.45, 0.28, 0.28, 0.45, [0.2, 0.72, 0.78],
+            t_appear=t1),
+        # compound lamp: pole + sphere head (non-box, one instance), removed
+        box("ne_lamp_pole", BOXLBL, 2.8, 4.5, 0.75, 0.05, 0.05, 0.75, [0.3, 0.3, 0.3],
+            group="ne_lamp", t_disappear=t3),
+        sphere("ne_lamp_head", BOXLBL, 2.8, 4.5, 1.62, 0.2, [0.9, 0.85, 0.5],
+               group="ne_lamp", t_disappear=t3),
+        box("ne_table", TABLE, 4.5, 2.0, 0.4, 0.6, 0.4, 0.4, [0.6, 0.42, 0.22]),
+        box("ne_chair_a", CHAIR, 4.2, 1.1, 0.35, 0.25, 0.25, 0.35, [0.2, 0.28, 0.8]),
+        box("ne_chair_b", CHAIR, 4.9, 1.1, 0.35, 0.25, 0.25, 0.35, [0.21, 0.3, 0.79]),
+        box("ne_box_a", BOXLBL, 6.6, 4.6, 0.3, 0.3, 0.3, 0.3, [0.82, 0.7, 0.25]),
+        box("ne_box_b", BOXLBL, 6.6, 3.8, 0.25, 0.25, 0.25, 0.25, [0.78, 0.68, 0.28]),
+
+        # ---- SE room (x>0, y<0): 9 instances -------------------------------
+        # MOVED object: disappears at A (t2), an identical box appears at B
+        box("se_box_moved_a", BOXLBL, 6.0, -4.6, 0.3, 0.3, 0.3, 0.3, [0.85, 0.68, 0.2],
+            t_disappear=t2),
+        box("se_box_moved_b", BOXLBL, 3.2, -5.2, 0.3, 0.3, 0.3, 0.3, [0.85, 0.68, 0.2],
+            t_appear=t2),
+        box("se_box_added", BOXLBL, 6.8, -2.0, 0.3, 0.3, 0.3, 0.3, [0.8, 0.66, 0.3],
+            t_appear=t3),
+        box("se_table_top", TABLE, 5.5, -3.2, 0.72, 0.7, 0.4, 0.05, [0.58, 0.4, 0.22], group="se_table"),
+        box("se_table_leg1", TABLE, 6.1, -3.2, 0.34, 0.06, 0.35, 0.34, [0.5, 0.36, 0.2], group="se_table"),
+        box("se_table_leg2", TABLE, 4.9, -3.2, 0.34, 0.06, 0.35, 0.34, [0.5, 0.36, 0.2], group="se_table"),
+        box("se_chair", CHAIR, 5.5, -2.3, 0.35, 0.25, 0.25, 0.35, [0.24, 0.3, 0.76]),
+        box("se_shelf", SHELF, 7.7, -3.6, 0.9, 0.25, 0.7, 0.9, [0.4, 0.29, 0.21]),
+        sphere("se_ball", BOXLBL, 2.5, -2.6, 0.3, 0.3, [0.3, 0.8, 0.4]),
+        # near-duplicate chairs along the south wall
+        box("se_chair_dup_a", CHAIR, 5.4, -5.3, 0.35, 0.25, 0.25, 0.35, [0.2, 0.3, 0.8]),
+        box("se_chair_dup_b", CHAIR, 6.05, -5.3, 0.35, 0.25, 0.25, 0.35, [0.2, 0.31, 0.79]),
+    ]
+
+    # four humans on crossing paths through the doorways
+    def human(name, path, color, hx=0.24, hz=0.85):
+        k = len(path)
+        wt = np.linspace(0, duration, k)
+        return Primitive(
+            kind=BOX, center=np.asarray(path[0], np.float32),
+            half_extents=np.array([hx, hx, hz], np.float32),
+            label=HUMAN, color=np.asarray(color, np.float32), name=name,
+            waypoints=np.asarray(path, np.float32), waypoint_times=wt,
+        )
+
+    # paths run 0.6 m laterally off the camera tour lines (so the camera is
+    # never INSIDE a human) but cross it at the doorways
+    z = 0.85
+    p1 = [[-4.6, -3.6, z], [-4.6, 0, z], [-4.6, 3.6, z], [0, 3.6, z], [4.6, 3.6, z],
+          [0, 3.6, z], [-4.6, 3.6, z], [-4.6, 0, z], [-4.6, -3.6, z]] * 2
+    p2 = [[4.6, 3.6, z], [0, 3.6, z], [-4.6, 3.6, z], [-4.6, 0, z], [-4.6, -3.6, z],
+          [-4.6, 0, z], [-4.6, 3.6, z], [0, 3.6, z], [4.6, 3.6, z]] * 2
+    p3 = [[4.6, -3.6, z], [0, -3.6, z], [-4.6, -3.6, z], [0, -3.6, z], [4.6, -3.6, z],
+          [4.6, 0, z], [4.6, 3.6, z], [4.6, 0, z], [4.6, -3.6, z]] * 2
+    p4 = [[5.5, 4.5, z], [3.0, 2.5, z], [6.5, 2.0, z], [5.5, 4.5, z]] * 4
+    prims.append(human("human_1", p1[:17], [0.9, 0.3, 0.3]))
+    prims.append(human("human_2", p2[:17], [0.3, 0.9, 0.3]))
+    prims.append(human("human_3", p3[:17], [0.3, 0.3, 0.9]))
+    prims.append(human("human_4", p4[:13], [0.9, 0.8, 0.3]))
+    return Scene(room_half_extents=half, room_center=center, primitives=prims)
+
+
+def hard_scene_tour_waypoints() -> np.ndarray:
+    """Closed tour through all four rooms of `hard_scene` via the doorways."""
+    return np.array(
+        [
+            [-4.0, -3.0, 0.0], [-4.0, 0.0, 0.0], [-4.0, 3.0, 0.0],
+            [0.0, 3.0, 0.0], [4.0, 3.0, 0.0], [4.0, 0.0, 0.0],
+            [4.0, -3.0, 0.0], [0.0, -3.0, 0.0],
+        ],
+        np.float64,
+    )
+
+
+class TourSequence(SyntheticSequence):
+    """Waypoint-tour camera for multi-room scenes: constant-speed traversal
+    of a closed polyline (`n_loops` times over `duration`), gaze at a
+    look-ahead point on the path (slightly downward) — the analog of the
+    uHumans2 robot's multi-room sweep."""
+
+    def __init__(self, scene: Scene, config: SyntheticSequenceConfig,
+                 waypoints: Optional[np.ndarray] = None, look_ahead: float = 1.8, device=None):
+        self.waypoints = np.asarray(
+            waypoints if waypoints is not None else hard_scene_tour_waypoints(),
+            np.float64,
+        )
+        closed = np.vstack([self.waypoints, self.waypoints[:1]])
+        seg = np.diff(closed, axis=0)
+        self._closed = closed
+        self._seg_len = np.linalg.norm(seg[:, :2], axis=1)
+        self._cum = np.concatenate([[0.0], np.cumsum(self._seg_len)])
+        self._perimeter = float(self._cum[-1])
+        self._look_ahead = look_ahead
+        super().__init__(scene, config, device=device)
+
+    def _point_at_arc(self, s: float) -> np.ndarray:
+        s = s % self._perimeter
+        k = int(np.searchsorted(self._cum, s, side="right") - 1)
+        k = min(max(k, 0), len(self._seg_len) - 1)
+        a = (s - self._cum[k]) / max(self._seg_len[k], 1e-9)
+        return (1 - a) * self._closed[k] + a * self._closed[k + 1]
+
+    def pose_at(self, t: float):
+        cfg = self.config
+        speed = self._perimeter * cfg.n_loops / cfg.duration
+        s = t * speed
+        pos = np.asarray(self._point_at_arc(s), np.float64)
+        tgt = np.asarray(self._point_at_arc(s + self._look_ahead), np.float64)
+        pos[2] = cfg.camera_height
+        tgt[2] = cfg.camera_height
+        look = tgt - pos
+        horiz = max(np.linalg.norm(look[:2]), 1e-6)
+        look = look / horiz
+        look[2] = -0.12  # slight downward pitch: floor + low furniture in view
+        up = np.array([0.0, 0.0, 1.0])
+        zax = look / np.linalg.norm(look)
+        xax = np.cross(zax, up)
+        xax /= max(np.linalg.norm(xax), 1e-6)
+        yax = np.cross(zax, xax)
+        R = np.stack([xax, yax, zax], axis=1)
+        return R.astype(np.float32), pos.astype(np.float32)
 
 
 def sample_scene_surface(scene: Scene, t: float, n_points: int = 20000, seed: int = 0):

@@ -108,3 +108,34 @@ def world_to_camera(p_w, R_w_c, t_w_c):
 def voxel_floor(points: torch.Tensor, voxel_size: float) -> torch.Tensor:
     """floor(points / voxel_size) as int32, with true division."""
     return torch.floor(true_div(points, voxel_size)).to(torch.int32)
+
+
+def bilinear_sample(image: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Bilinear interpolation of image [H, W] (or [H, W, C]) at float coords."""
+    H, W = image.shape[0], image.shape[1]
+    u0 = torch.floor(u).to(torch.int32).clamp(0, W - 2)
+    v0 = torch.floor(v).to(torch.int32).clamp(0, H - 2)
+    du = (u - u0).clamp(0.0, 1.0)
+    dv = (v - v0).clamp(0.0, 1.0)
+    if image.dim() == 3:
+        du, dv = du[..., None], dv[..., None]
+    u0, v0 = u0.long(), v0.long()
+    i00 = image[v0, u0]
+    i01 = image[v0, u0 + 1]
+    i10 = image[v0 + 1, u0]
+    i11 = image[v0 + 1, u0 + 1]
+    return (
+        i00 * (1 - du) * (1 - dv)
+        + i01 * du * (1 - dv)
+        + i10 * (1 - du) * dv
+        + i11 * du * dv
+    )
+
+
+def nearest_sample(image: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Nearest-neighbor lookup (for label/id images); ties round to even, as
+    jnp.round does."""
+    H, W = image.shape[0], image.shape[1]
+    ui = torch.round(u).to(torch.int32).clamp(0, W - 1).long()
+    vi = torch.round(v).to(torch.int32).clamp(0, H - 1).long()
+    return image[vi, ui]

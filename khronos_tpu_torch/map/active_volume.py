@@ -31,7 +31,7 @@ import torch
 
 from khronos_tpu_torch import resolve_device, true_div, u32_bits
 from khronos_tpu_torch.config import check_ge, check_gt
-from khronos_tpu_torch.geometry.camera import Camera, world_to_camera
+from khronos_tpu_torch.geometry.camera import Camera, voxel_floor, world_to_camera
 from khronos_tpu_torch.ops.dense import all_pool3, any_pool3
 from khronos_tpu_torch.ops.gather import gather_rows
 
@@ -154,6 +154,15 @@ def _center_components(state: VolumeState, voxel_size: float):
         view[axis] = n
         comps.append(c.view(view).expand(shape))
     return comps
+
+
+def world_to_index(state: VolumeState, points: torch.Tensor, voxel_size: float):
+    """World points [..., 3] -> (grid index int32 [..., 3], in-bounds mask)."""
+    origin = torch.tensor(_origin(state), dtype=torch.int32, device=points.device)
+    idx = voxel_floor(points, voxel_size) - origin
+    shape = torch.tensor(tuple(state.tsdf.shape), dtype=torch.int32, device=points.device)
+    ok = ((idx >= 0) & (idx < shape)).all(dim=-1)
+    return idx, ok
 
 
 def _reset_values(config: VolumeConfig, state: VolumeState, reset: torch.Tensor) -> VolumeState:
@@ -304,6 +313,36 @@ def crop_shape_for_camera(config: VolumeConfig, camera: Camera) -> Tuple[int, in
     need = (need + 7) // 8 * 8
     X, Y, Z = config.grid_shape
     return (min(X, need), min(Y, need), Z)
+
+
+def integrate_frame_cropped(
+    config: VolumeConfig,
+    camera: Camera,
+    state: VolumeState,
+    depth: torch.Tensor,
+    color: torch.Tensor,
+    labels: torch.Tensor,
+    exclusion_mask: torch.Tensor,
+    R_w_c,
+    t_w_c,
+    t_now,
+) -> VolumeState:
+    """integrate_frame restricted to a camera-centered subgrid: the projective
+    update only touches voxels within max_range of the camera, and the box
+    includes a stencil margin, so every voxel within range sees its true
+    26-neighborhood; voxels outside it are untouched. Writes the crop back
+    into `state` in place (as the fused step does)."""
+    crop = crop_shape_for_camera(config, camera)
+    if all(c >= s for c, s in zip(crop, state.tsdf.shape)):
+        return integrate_frame(
+            config, camera, state, depth, color, labels, exclusion_mask, R_w_c, t_w_c, t_now
+        )
+    start = crop_start(config, state, t_w_c, crop)
+    sub = slice_state(state, start, crop)
+    sub = integrate_frame(
+        config, camera, sub, depth, color, labels, exclusion_mask, R_w_c, t_w_c, t_now
+    )
+    return unslice_state(state, sub, start)
 
 
 def crop_start(config: VolumeConfig, state: VolumeState, t_w_c, crop) -> Tuple[int, int, int]:

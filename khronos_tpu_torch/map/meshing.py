@@ -319,8 +319,8 @@ def extract_mesh(
 
     n_remaining > 0 means more cells wanted emission than fit — call again
     with a recomputed mask; unemitted cells keep their cell_meshed flag clear."""
-    state, copy = extract_mesh_async(state, emit_mask, config, max_cells, tri_capacity)
-    out, n_remaining = pull_mesh(copy)
+    state, packed, meta = extract_mesh_async(state, emit_mask, config, max_cells, tri_capacity)
+    out, n_remaining = pull_mesh(packed, meta)
     return state, out, n_remaining
 
 
@@ -339,22 +339,39 @@ def extract_mesh_async(
     max_cells: int = 16384,
     tri_capacity: int = None,
 ):
-    """Device-side emission round plus the start of its host copy: returns
-    (state', HostCopy of (packed, meta)). The fixed [tri_capacity, 12] buffer
-    (768 KB at the default capacity) and the meta go to pinned host memory
-    with non-blocking copies; nothing waits for the device."""
+    """Device-side emission round only: returns (state', packed int32
+    [tri_capacity, 12], meta float32 [9]), both on the device. The caller
+    copies the meta to the host (its own HostCopy, or the active window's
+    bus) and then only the used body rows (`start_body_pull`): the fixed
+    buffer (768 KB at the default capacity) is mostly padding."""
     if tri_capacity is None:
         tri_capacity = default_tri_capacity(max_cells)
     cell_meshed, packed, meta = _extract_device(
         state, emit_mask, config.voxel_size, max_cells, tri_capacity
     )
-    return state._replace(cell_meshed=cell_meshed), HostCopy(packed, meta)
+    return state._replace(cell_meshed=cell_meshed), packed, meta
 
 
-def pull_mesh(pending: HostCopy):
-    """Wait for an emission round's copy and unpack it: (mesh dict, n_remaining)."""
-    meta = pending.numpy(1)
-    return unpack_mesh(pending.numpy(0)[: int(meta[0])].view(np.uint32), meta)
+def start_body_pull(packed: torch.Tensor, n_tris: int):
+    """Start the host copy of the used rows of an emission buffer: a HostCopy,
+    or None when the round emitted nothing."""
+    if n_tris <= 0:
+        return None
+    return HostCopy(packed[:n_tris])
+
+
+def body_rows(body) -> np.ndarray:
+    """A started body pull's rows as uint32 [n, 12], waiting for the copy."""
+    if body is None:
+        return np.zeros((0, 12), np.uint32)
+    return body.numpy(0).view(np.uint32)
+
+
+def pull_mesh(packed: torch.Tensor, meta: torch.Tensor):
+    """Copy an emission round to the host, waiting, and unpack it:
+    (mesh dict, n_remaining)."""
+    meta = HostCopy(meta).numpy(0)
+    return unpack_mesh(body_rows(start_body_pull(packed, int(meta[0]))), meta)
 
 
 def unpack_mesh(packed: np.ndarray, meta: np.ndarray):

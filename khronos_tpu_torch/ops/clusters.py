@@ -156,6 +156,32 @@ def cluster_point_samples(
     return torch.where(valid[..., None], samples, 0.0), valid
 
 
+def cluster_voxel_counts(
+    compact: torch.Tensor,  # [H, W] compact cluster ids (-1 none)
+    vox_lin: torch.Tensor,  # [H, W] int32 linear voxel index per pixel
+    max_clusters: int = 32,
+) -> torch.Tensor:
+    """Number of distinct voxels per cluster, computed from PIXELS, as int32.
+
+    The reference's int32 keys (cluster id above bit 21, the voxel index
+    clamped below it) are sorted and each cluster counts its first
+    occurrences; the counts are integer scatter-adds, exact in any order."""
+    MC = max_clusters
+    flat_c = compact.reshape(-1).to(torch.int32)
+    flat_v = vox_lin.reshape(-1).to(torch.int32)
+    dev = flat_c.device
+    SHIFT = 21
+    key = flat_c * (1 << SHIFT) + torch.clamp_max(flat_v, (1 << SHIFT) - 1)
+    key = torch.where(flat_c >= 0, key, INT32_MAX)
+    s = torch.sort(key).values
+    first = torch.ones_like(s, dtype=torch.bool)
+    first[1:] = s[1:] != s[:-1]
+    valid = s != INT32_MAX
+    seg = torch.where(valid, s >> SHIFT, MC).long()
+    counts = torch.zeros(MC + 1, dtype=torch.int32, device=dev)
+    return counts.scatter_add_(0, seg, (first & valid).to(torch.int32))[:MC]
+
+
 def compact_indices(mask_flat: torch.Tensor, capacity: int) -> torch.Tensor:
     """Indices of True elements (ascending), -1 padded, via cumsum + scatter
     (unselected elements write a dropped slot)."""

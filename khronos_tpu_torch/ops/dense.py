@@ -124,3 +124,82 @@ def propagate_labels_keyed_3d(
             best[dst] = torch.maximum(best[dst], torch.where(eq, lab[src], -1))
         lab = torch.where(growable, best, -1)
     return lab
+
+
+def propagate_labels_2d(
+    labels: torch.Tensor, growable: torch.Tensor, iterations: int, full_connectivity: bool = True
+) -> torch.Tensor:
+    """2D variant (image connected components), 8- or 4-connected."""
+    lab = torch.where(growable, labels, -1)
+    for _ in range(iterations):
+        if full_connectivity:
+            spread = _pool1d(_pool1d(lab, 0, torch.maximum, -1), 1, torch.maximum, -1)
+        else:
+            spread = torch.maximum(
+                _pool1d(lab, 0, torch.maximum, -1), _pool1d(lab, 1, torch.maximum, -1)
+            )
+        lab = torch.where(growable, torch.maximum(lab, spread), -1)
+    return lab
+
+
+def compact_labels(labels_flat: torch.Tensor, max_clusters: int):
+    """Map arbitrary int labels (-1 = none) to compact ids [0, max_clusters).
+
+    Returns (compact_labels_flat, unique_labels[max_clusters] with -1 fill,
+    n_clusters): the reference's `jnp.unique(size=max_clusters + 1)` keeps
+    the max_clusters + 1 smallest distinct values (-1 among them when
+    present), and n counts the non-negative ones among those."""
+    from khronos_tpu_torch.ops.clusters import INT32_MAX
+
+    vals = torch.unique(labels_flat)  # sorted ascending
+    uniq = vals[: max_clusters + 1]
+    is_real = uniq >= 0
+    n = is_real.sum(dtype=torch.int32)
+    reals = torch.full((max_clusters + 1,), INT32_MAX, dtype=labels_flat.dtype, device=labels_flat.device)
+    real_vals = uniq[is_real]
+    reals[: real_vals.shape[0]] = real_vals
+    idx = torch.searchsorted(reals, labels_flat.contiguous()).clamp(0, max_clusters - 1)
+    hit = reals[idx] == labels_flat
+    compact = torch.where((labels_flat >= 0) & hit, idx, -1).to(torch.int32)
+    head = reals[:max_clusters]
+    uniq_out = torch.where(head == INT32_MAX, -1, head).to(torch.int32)
+    return compact, uniq_out, n
+
+
+_OFFSETS_2D_8 = [(di, dj) for di in (-1, 0, 1) for dj in (-1, 0, 1) if (di, dj) != (0, 0)]
+_OFFSETS_2D_4 = [(-1, 0), (1, 0), (0, -1), (0, 1)]
+
+
+def _shift_slices_2d(shape, off):
+    """(dst, src) index tuples of a 2D shift by `off` (data moves by +off)."""
+    dst, src = [], []
+    for axis, o in enumerate(off):
+        n = shape[axis]
+        dst.append(slice(o, n) if o > 0 else slice(0, n + o))
+        src.append(slice(0, n - o) if o > 0 else slice(-o, n))
+    return tuple(dst), tuple(src)
+
+
+def propagate_labels_keyed_2d(
+    labels: torch.Tensor,
+    key: torch.Tensor,
+    growable: torch.Tensor,
+    iterations: int,
+    full_connectivity: bool = True,
+) -> torch.Tensor:
+    """2D image variant (ConnectedSemantics 2D mode, 4/8-connectivity).
+
+    As in the 3D keyed propagation, every neighbour contributes at least the
+    fill -1, and the neighbour-key equality masks are computed once."""
+    lab = torch.where(growable, labels, -1)
+    offsets = _OFFSETS_2D_8 if full_connectivity else _OFFSETS_2D_4
+    nbrs = []
+    for off in offsets:
+        dst, src = _shift_slices_2d(lab.shape, off)
+        nbrs.append((dst, src, key[dst] == key[src]))
+    for _ in range(iterations):
+        best = lab.clamp_min(-1)
+        for dst, src, eq in nbrs:
+            best[dst] = torch.maximum(best[dst], torch.where(eq, lab[src], -1))
+        lab = torch.where(growable, best, -1)
+    return lab

@@ -1,11 +1,12 @@
 """Non-blocking device -> host copies.
 
-The active window pulls two kinds of small results every frame or output: the
-packed tracker stats and the mesh emission rounds. Each pull is a
-non-blocking copy into pinned host memory on the current stream, followed by
-a CUDA event; the host polls the event and reads the copy only once it has
-landed, so the frame loop never waits for the device. CPU tensors need no
-copy and are ready at once.
+The active window pulls small results every few frames or outputs: the bus
+(the packed tracker stats of a batch of frames with the pending mesh
+emission metas), a drain round's meta, and each emission round's used rows.
+Each pull is a non-blocking copy into pinned host memory on the current
+stream, followed by a CUDA event; the host polls the event and reads the copy
+only once it has landed, so the frame loop never waits for the device. CPU
+tensors need no copy and are ready at once.
 """
 
 from __future__ import annotations

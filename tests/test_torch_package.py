@@ -64,7 +64,8 @@ def test_imports_no_jax():
         "          'changes.change_state', 'changes.ray_verificator', 'changes.change_detector',\n"
         "          'changes.detectors', 'changes.reconciler', 'eval.evaluators', 'stm.spatio_temporal_map',\n"
         "          'pipeline.pipeline', 'run', 'stm.places', 'eval.pipeline_evaluator', 'eval.plotting',\n"
-        "          'eval.viewer', 'eval.ground_truth', 'eval.__main__'):\n"
+        "          'eval.viewer', 'eval.ground_truth', 'eval.__main__', 'active_window.instance_forwarding',\n"
+        "          'active_window.motion_detection', 'active_window.object_detection'):\n"
         "    assert 'khronos_tpu_torch.' + m in mods, m\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"
@@ -164,9 +165,7 @@ UNPORTED_OPTIONS = {
         ExperimentConfig(output_dir=tempfile.mkdtemp(), checkpoint_every_n_frames=5), _pipeline()),
     "cli_directory_dataset": lambda: _run_cli("dataset.kind=directory"),
     "n_devices": lambda: _window({"n_devices": 1}),
-    "modular": lambda: _window({"fused": False}),
     "solver_schur": lambda: Backend(build(BackendConfig, {"solver": "schur"}), device="cpu"),
-    "openset": lambda: SyntheticDataset(height=8, width=8, openset=True, device="cpu"),
     **{f"lcd_{kind}": (lambda kind=kind: build(BackendConfig, {"lcd": {"type": kind}}).lcd.create())
        for kind in ("DescriptorLoopClosure", "AppearanceLoopClosure", "SceneGraphLoopClosure", "HybridLoopClosure")},
 }
@@ -179,19 +178,10 @@ def test_unported_options_raise(option):
 
 
 def test_modular_parts_and_extraction_raise():
-    """The modular detectors, and the data sources that later slices port,
-    raise."""
-    cfg = build(ActiveWindowConfig, {**BENCH, "volumetric_map": {"grid_shape": [16, 16, 8]}})
-    cam = tsyn.SyntheticSequence(tsyn.office_scene(), tsyn.SyntheticSequenceConfig(height=8, width=8), device="cpu").camera
-    for plugin, args in ((cfg.motion_detector, (cfg.volumetric_map, cam)),
-                         (cfg.object_detector, (cfg.volumetric_map, cam, tsyn.default_label_space()))):
-        with pytest.raises(NotImplementedError):
-            plugin.create(*args)
+    """The data sources that later slices port raise."""
     for kind in ("directory", "tum", "rosbag2"):
         with pytest.raises(NotImplementedError):
             make_dataset(kind)
-    with pytest.raises(NotImplementedError):
-        SyntheticDataset(scene_name="apartment", height=8, width=8, device="cpu")
 
 
 def test_host_copy_on_cpu_is_ready():

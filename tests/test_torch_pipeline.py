@@ -130,9 +130,10 @@ def test_window_extraction_and_backend_match_reference():
 
     # each backend on its own window's outputs: the same loop closures (as
     # agent indices: graph keys interleave agents with control nodes, which
-    # arrive with the mesh deltas, and a delta joins the output whose
-    # building finds its copy landed, one output earlier in the port on the
-    # CPU), solves and agent trajectory
+    # arrive with the mesh deltas, and a delta joins the first output after
+    # the bus carrying its meta has landed: at once in the port on the CPU,
+    # when the reference's thread pool has finished it in the reference),
+    # solves and agent trajectory
     def lc_agents(be):
         return [(be.agent_keys.index(lc.from_key), be.agent_keys.index(lc.to_key)) for lc in be.loop_closures]
 

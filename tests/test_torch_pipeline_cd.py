@@ -5,9 +5,9 @@ the port's CLI.
 The JAX renderer's small office frames (48x64 at 4 fps, 6 s, two orbits),
 posed at drifted odometry (the same numbers in both packages), go through
 each package's ExperimentManager with GT loop closure and change detection
-every 6 frames. Mesh deltas land one output earlier in the port on the CPU
-(see tests/test_torch_pipeline.py), so the snapshots that change detection
-sees differ a little between the two runs: the whole runs are held to the
+every 6 frames. The output a mesh delta lands in depends on when the
+reference's host pulls land (tests/test_torch_bus.py), so the snapshots that
+change detection sees may differ a little between the two runs: the whole runs are held to the
 same loop closures, snapshot count, change verdicts and object presence
 intervals within one evidence bin. For the strict comparison, the
 reference's recorded change-detection requests (snapshot DSG, stamp, loop

@@ -6,10 +6,10 @@ CLI with places, evaluation and the viewer on.
 
 The JAX renderer's small office frames of tests/test_torch_pipeline_cd.py
 (48x64 at 4 fps, 6 s, two orbits, drifted odometry, GT loop closure, change
-detection every 6 frames) go through the reference pipeline. Mesh deltas land
-one output earlier in the port on the CPU (tests/test_torch_pipeline.py), so
-the strict comparisons replay what the reference's extractor and change
-detection received. Tolerance: none (layers, archives and CSVs bit for bit,
+detection every 6 frames) go through the reference pipeline. The output a
+mesh delta lands in depends on when the reference's host pulls land
+(tests/test_torch_bus.py), so the strict comparisons replay what the
+reference's extractor and change detection received. Tolerance: none (layers, archives and CSVs bit for bit,
 byte for byte)."""
 
 import copy
