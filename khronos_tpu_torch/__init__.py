@@ -16,6 +16,7 @@ indices, cluster statistics) and must be full float32, as in the reference.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 __version__ = "0.1.0"
@@ -47,8 +48,15 @@ def true_div(x: torch.Tensor, divisor: float) -> torch.Tensor:
     return x / torch.full((), divisor, dtype=x.dtype, device=x.device)
 
 
-def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """a * b + c of float32 tensors with one rounding, as a fused multiply-add.
+def _f64(x):
+    """A float32 tensor in float64, or a Python number rounded to float32 (as
+    the reference's weakly typed constants are) as a float."""
+    return x.double() if torch.is_tensor(x) else float(np.float32(x))
+
+
+def fma32(a, b, c) -> torch.Tensor:
+    """a * b + c of float32 tensors (or Python numbers, taken as float32) with
+    one rounding, as a fused multiply-add.
 
     The reference's CPU build (XLA through LLVM) contracts such sums into
     fused multiply-adds where a decision follows (ray marching, the ray
@@ -57,7 +65,7 @@ def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     float64 add and the cast give the fused result (a double rounding can
     differ from it, about once in 2^28 sums). The card and the CPU compute
     the same bits."""
-    return (a.double() * b.double() + c.double()).float()
+    return (_f64(a) * _f64(b) + _f64(c)).float()
 
 
 def sqrt32(x: torch.Tensor) -> torch.Tensor:

@@ -173,7 +173,7 @@ def make_frame_step(
         depth_d = depth[::s, ::s]
         labels_d = labels[::s, ::s]
         H, W = depth_d.shape
-        points_w = cam_d.vertex_image_world(depth_d, R_w_c, t_w_c)
+        points_w = cam_d.vertex_image_world(depth_d, R_w_c, t_w_c, reciprocal=True)  # as compiled
         valid = (depth_d > camera.min_range) & (depth_d <= max_r)
 
         start = av.crop_start(vol_cfg, state, t_w_c, crop)

@@ -30,7 +30,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from khronos_tpu_torch import resolve_device
+from khronos_tpu_torch import fma32, resolve_device, sqrt32
 from khronos_tpu_torch.active_window.tracking import Track
 from khronos_tpu_torch.config import check_gt, register
 from khronos_tpu_torch.geometry.camera import Camera, world_to_camera
@@ -71,12 +71,17 @@ def _reconstruct_device(frames, camera: Camera, origin, voxel, trunc, min_conf, 
 
     Returns (tsdf, weight, confidence) where confidence = w_fg/(w_fg+w_bg);
     tsdf<0 voxels with confidence < min_conf are pruned to +trunc with
-    their weight kept (mesh_object_extractor.cpp:245-264 semantics)."""
+    their weight kept (mesh_object_extractor.cpp:245-264 semantics).
+
+    Rounds as XLA CPU compiles the reference's program (fused multiply-adds
+    for the centers, the camera z, the pixel coordinates, the range and the
+    weighted mean; tests/test_torch_contraction.py holds it bit for bit)."""
     voxel, trunc, min_conf = (float(np.float32(x)) for x in (voxel, trunc, min_conf))
     G3 = (G, G, G)
     centers = []
     for axis in range(3):
-        c = float(np.float32(origin[axis])) + (torch.arange(G, device=device).to(torch.float32) + 0.5) * voxel
+        # XLA CPU fuses origin + (i + 0.5) * voxel into one rounding
+        c = fma32(torch.arange(G, device=device).to(torch.float32) + 0.5, voxel, float(np.float32(origin[axis])))
         view = [1, 1, 1]
         view[axis] = G
         centers.append(c.view(view).expand(G3))
@@ -89,8 +94,8 @@ def _reconstruct_device(frames, camera: Camera, origin, voxel, trunc, min_conf, 
         pc = world_to_camera(centers, R, t)
         z = pc[2]
         safe_z = torch.where(z > 1e-6, z, 1e-6)
-        u = pc[0] / safe_z * camera.fx + camera.cx
-        v = pc[1] / safe_z * camera.fy + camera.cy
+        u = fma32(pc[0] / safe_z, camera.fx, camera.cx)
+        v = fma32(pc[1] / safe_z, camera.fy, camera.cy)
         in_img = (z > 1e-6) & (u >= 0) & (u <= W - 1) & (v >= 0) & (v <= H - 1)
         # clamp in float first: an out-of-range float->int cast is undefined
         # (the index only matters where in_img holds)
@@ -100,7 +105,7 @@ def _reconstruct_device(frames, camera: Camera, origin, voxel, trunc, min_conf, 
         d = depth.reshape(-1)[pix].view(G3)
         is_fg = (obj_img.reshape(-1)[pix] == cid).view(G3)
         valid_pix = in_img & (d > 0.0)
-        rscale = torch.sqrt(pc[0] * pc[0] + pc[1] * pc[1] + z * z) / safe_z
+        rscale = sqrt32(fma32(z, z, fma32(pc[0], pc[0], pc[1] * pc[1]))) / safe_z
         sdf = (d - z) * rscale
 
         in_band = valid_pix & (sdf.abs() <= trunc)
@@ -109,7 +114,7 @@ def _reconstruct_device(frames, camera: Camera, origin, voxel, trunc, min_conf, 
         # free-space carving from any valid pixel seeing through the voxel
         upd = (in_band & is_fg) | in_front
         sdf_c = sdf.clamp(-trunc, trunc)
-        tsdf = torch.where(upd, (tsdf * w + sdf_c) / (w + 1.0), tsdf)
+        tsdf = torch.where(upd, fma32(tsdf, w, sdf_c) / (w + 1.0), tsdf)
         w = torch.where(upd, w + 1.0, w)
         # binary semantic evidence near the surface band
         w_fg = w_fg + (in_band & is_fg).to(torch.float32)

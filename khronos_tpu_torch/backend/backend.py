@@ -139,7 +139,7 @@ class Backend:
         self.objects: Dict[int, KhronosObject] = {}  # raw odometry-frame objects
         self.agents: List[AgentNode] = []  # raw odometry-frame agent nodes
         self.agent_keys: List[int] = []  # graph node id per agent
-        self.lcd = config.lcd.create()
+        self.lcd = config.lcd.create(device=self.device)
         # optional places-layer feed for LCDs with needs_places (the hydra
         # LCD places tier): a callable returning (positions [P,3],
         # clearances [P]) or None; wired by the pipeline when a places

@@ -10,8 +10,11 @@ sphere-tracing the scene SDF on the device, the open-set embeddings
 reference's seeds, bit for bit), the drifted odometry (`odometry_pose`, the
 same random walk as the reference: numpy's generator from the same seed), and
 the ground-truth surface samples of the evaluation (`sample_scene_surface`,
-host numpy). Sensor noise (the reference draws it with `jax.random`) is a later
-slice: `SyntheticSequenceConfig.noise` must stay None.
+host numpy), and the structured-light sensor noise (`SensorNoiseConfig`,
+`_apply_sensor_noise`). The reference draws that noise with `jax.random`; the
+port draws it from a torch.Generator on the CPU seeded from (noise.seed, frame
+index), so a frame's noise is the same on the card and on the CPU, and its
+parity with the reference is statistical (tests/test_torch_noise.py).
 """
 
 from __future__ import annotations
@@ -22,9 +25,9 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from khronos_tpu_torch import resolve_device
+from khronos_tpu_torch import fma32, resolve_device, sqrt32
 from khronos_tpu_torch.active_window.object_detection import LabelSpace
-from khronos_tpu_torch.geometry.camera import Camera
+from khronos_tpu_torch.geometry.camera import Camera, fma_dot3
 
 # primitive types
 BOX, SPHERE, ROOM = 0, 1, 2
@@ -126,16 +129,23 @@ def _primitive_sdf(kinds, centers, halfs, p):
     return torch.where(k == BOX, box, torch.where(k == SPHERE, sphere, -box))
 
 
+def rotate_rays(rays_c: torch.Tensor, R_w_c) -> torch.Tensor:
+    """rays [H, W, 3] rotated by the host float32 R_w_c: the reference's
+    einsum("ij,hwj->hwi", R, rays) as XLA CPU rounds it (`fma_dot3`)."""
+    R = np.asarray(R_w_c, np.float32).tolist()
+    x = [rays_c[..., j] for j in range(3)]
+    return torch.stack([fma_dot3(x, R[i]) for i in range(3)], dim=-1)
+
+
 def _render(kinds, centers, halfs, labels, colors, present, rays_c, R_w_c, t_w_c, max_range, n_steps=96):
     """Sphere-trace every pixel ray; returns (depth, labels, color, hit_prim,
     hit_ok) images. R_w_c / t_w_c are host float32."""
-    R = np.asarray(R_w_c, np.float32).tolist()
     t = torch.from_numpy(np.asarray(t_w_c, np.float32)).to(rays_c.device)
-    dirs_w = torch.stack(
-        [rays_c[..., 0] * R[i][0] + rays_c[..., 1] * R[i][1] + rays_c[..., 2] * R[i][2] for i in range(3)],
-        dim=-1,
-    )
-    dirs = dirs_w / _norm3(dirs_w)[..., None]  # unit rays, world frame
+    dirs_w = rotate_rays(rays_c, R_w_c)
+    # unit rays, world frame; the norm as XLA CPU rounds the reference's
+    # jnp.linalg.norm here: sqrt(fma(z, z, fma(y, y, x * x)))
+    x, y, z = dirs_w[..., 0], dirs_w[..., 1], dirs_w[..., 2]
+    dirs = dirs_w / sqrt32(fma32(z, z, fma32(y, y, x * x)))[..., None]
     inf = torch.full((), float("inf"), device=rays_c.device)
 
     def scene_sdf(p):
@@ -163,6 +173,73 @@ def _render(kinds, centers, halfs, labels, colors, present, rays_c, R_w_c, t_w_c
 
 
 @dataclasses.dataclass
+class SensorNoiseConfig:
+    """Structured-light RGB-D sensor noise: Kinect-style error model (sigma and
+    quantization step growing ~depth^2, lateral jitter + dropout at depth
+    discontinuities, label flicker at segmentation boundaries)."""
+
+    depth_sigma0: float = 0.002  # m, range-noise floor
+    depth_sigma2: float = 0.0019  # m per m^2 (sigma grows with depth^2)
+    disparity_quant: float = 0.0007  # quantization step = quant * depth^2
+    edge_grad_m: float = 0.10  # neighbor depth jump (m) that marks an edge
+    edge_jitter_p: float = 0.5  # edge pixels sampling a random neighbor depth
+    edge_dropout_p: float = 0.3  # edge pixels returning no depth
+    dropout_p: float = 0.002  # speckle dropout probability anywhere
+    label_flicker_p: float = 0.35  # boundary pixels taking a neighbor's label
+    seed: int = 7
+
+
+def _neighbours(img: torch.Tensor) -> torch.Tensor:
+    """[4, H, W] up / down / left / right neighbours, edge-replicated."""
+    up = torch.cat([img[:1], img[:-1]], dim=0)
+    dn = torch.cat([img[1:], img[-1:]], dim=0)
+    lf = torch.cat([img[:, :1], img[:, :-1]], dim=1)
+    rt = torch.cat([img[:, 1:], img[:, -1:]], dim=1)
+    return torch.stack([up, dn, lf, rt])
+
+
+def _noise_draws(seed: int, index: int, shape, device):
+    """The random draws of one frame: a standard normal, a neighbour choice in
+    [0, 4) and three uniforms [3, H, W] (jitter, dropout, flicker), from a CPU
+    torch.Generator seeded from (seed, index), moved to `device`."""
+    g = torch.Generator().manual_seed(int(np.random.SeedSequence([seed, index]).generate_state(1, np.uint64)[0]))
+    normal = torch.randn(shape, generator=g)
+    sel = torch.randint(0, 4, shape, generator=g)
+    uni = torch.rand((3, *shape), generator=g)
+    return normal.to(device), sel.to(device), uni.to(device)
+
+
+def _apply_sensor_noise(draws, depth, labels, nz: SensorNoiseConfig):
+    """Range noise + depth^2 quantization + edge jitter/dropout + boundary
+    label flicker, the reference's model with `draws` (_noise_draws) in place
+    of its jax.random keys. Invalid pixels (depth <= 0) stay invalid."""
+    normal, sel, (u_jit, u_drop, u_flick) = draws
+    f = lambda x: float(np.float32(x))  # noqa: E731  the reference's float32 parameters
+    valid = depth > 0.0
+    nbrs = _neighbours(depth)
+    max_jump = (nbrs - depth[None]).abs().amax(dim=0)
+    edge = valid & (max_jump > f(nz.edge_grad_m))
+    # range noise + quantization (step grows with depth^2)
+    d = depth + normal * (f(nz.depth_sigma0) + f(nz.depth_sigma2) * depth * depth)
+    step = f(nz.disparity_quant) * d.clamp_min(0.1) ** 2
+    d = torch.round(d / step) * step
+    # edge jitter: edge pixels sample a random 4-neighbor's depth
+    nbr_d = torch.gather(nbrs, 0, sel[None])[0]
+    jit = edge & (u_jit < f(nz.edge_jitter_p))
+    d = torch.where(jit & (nbr_d > 0), nbr_d, d)
+    # dropout: speckle everywhere + elevated at edges
+    p_drop = f(nz.dropout_p) + torch.where(edge, f(nz.edge_dropout_p), 0.0)
+    d = torch.where(u_drop < p_drop, 0.0, d)
+    d = torch.where(valid, d.clamp_min(0.0), 0.0)
+    # label flicker at segmentation boundaries: take a random neighbor label
+    lnbrs = _neighbours(labels)
+    boundary = (lnbrs - labels[None]).abs().amax(dim=0) > 0
+    nbr_l = torch.gather(lnbrs, 0, sel[None])[0]
+    flick = boundary & (u_flick < f(nz.label_flicker_p))
+    return d, torch.where(flick, nbr_l, labels)
+
+
+@dataclasses.dataclass
 class SyntheticSequenceConfig:
     height: int = 240
     width: int = 320
@@ -179,8 +256,9 @@ class SyntheticSequenceConfig:
     camera_height: float = 1.4
     drift_rate: float = 0.0  # m per m of odometric drift (0 = GT odometry)
     seed: int = 0
-    # sensor-noise model: a later slice of the port; must be None
-    noise: Optional[object] = None
+    # sensor-noise model applied to depth + labels at render time (None = the
+    # noise-free renderer)
+    noise: Optional[SensorNoiseConfig] = None
 
 
 class SyntheticSequence:
@@ -188,8 +266,6 @@ class SyntheticSequence:
     (CUDA unless the caller passes device="cpu")."""
 
     def __init__(self, scene: Scene, config: SyntheticSequenceConfig, device=None):
-        if config.noise is not None:
-            raise NotImplementedError("synthetic sensor noise is not ported yet (a later slice)")
         self.scene = scene
         self.config = config
         self.device = resolve_device(device)
@@ -242,6 +318,11 @@ class SyntheticSequence:
             pos,
             self.config.max_range,
         )
+        label_img = label_img.to(torch.int32)
+        nz = self.config.noise
+        if nz is not None:
+            draws = _noise_draws(nz.seed, i, tuple(depth.shape), self.device)
+            depth, label_img = _apply_sensor_noise(draws, depth, label_img, nz)
         # open-set outputs: stable instance ids (primitive index, 0 = room/bg)
         # + synthetic per-instance embedding vectors (fixed unit vectors per
         # primitive, a stand-in for CLIP features from semantic_inference)
@@ -250,7 +331,7 @@ class SyntheticSequence:
             "stamp_ns": self.frame_stamp_ns(i),
             "t": t,
             "depth": depth,
-            "labels": label_img.to(torch.int32),
+            "labels": label_img,
             "color": color_img,
             "instances": instances.to(torch.int32),
             "features": self.instance_features(),

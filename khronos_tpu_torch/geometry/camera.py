@@ -7,10 +7,12 @@ x-right, y-down, z-forward; `T_w_c=(R,t)` maps camera points to world.
 The pixel rays are computed once on the host in float32 numpy (IEEE division,
 as the reference's constant-folded rays) and cached per device. Poses stay
 host numpy float32 (FrameData's contract); the small 3x3 products are written
-out elementwise in j = 0, 1, 2 order with the pose entries as scalars: their
-results feed decisions (voxel index floors, in-image tests), so they avoid a
-matmul whose accumulation order and TF32 setting are the library's choice,
-and no pose is copied to the device.
+out elementwise with the pose entries as scalars, rounding as XLA CPU
+compiles the reference's contractions (fused multiply-adds where it fuses;
+see `transform_points` and `world_to_camera`): their results feed decisions
+(voxel index floors, in-image tests), so they avoid a matmul whose
+accumulation order and TF32 setting are the library's choice, and no pose is
+copied to the device.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from khronos_tpu_torch import true_div
+from khronos_tpu_torch import fma32, true_div
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,29 +42,39 @@ class Camera:
             [[self.fx, 0, self.cx], [0, self.fy, self.cy], [0, 0, 1]], dtype=np.float32
         )
 
-    def pixel_rays_np(self) -> np.ndarray:
-        """Unit-z ray directions per pixel in camera frame: [H, W, 3] float32."""
+    def pixel_rays_np(self, reciprocal: bool = False) -> np.ndarray:
+        """Unit-z ray directions per pixel in camera frame: [H, W, 3] float32.
+
+        The reference's rays divide by fx and fy with IEEE division where
+        they are computed op by op (the renderer, the modular detectors, the
+        LCD payload), and multiply by the float32 reciprocal inside a
+        compiled program (XLA CPU's division by a constant: the fused step's
+        vertex image): `reciprocal=True` gives those."""
         u = np.arange(self.width, dtype=np.float32) + np.float32(0.5)
         v = np.arange(self.height, dtype=np.float32) + np.float32(0.5)
         uu, vv = np.meshgrid(u, v)
-        x = (uu - np.float32(self.cx)) / np.float32(self.fx)
-        y = (vv - np.float32(self.cy)) / np.float32(self.fy)
+        if reciprocal:
+            x = (uu - np.float32(self.cx)) * (np.float32(1) / np.float32(self.fx))
+            y = (vv - np.float32(self.cy)) * (np.float32(1) / np.float32(self.fy))
+        else:
+            x = (uu - np.float32(self.cx)) / np.float32(self.fx)
+            y = (vv - np.float32(self.cy)) / np.float32(self.fy)
         return np.stack([x, y, np.ones_like(x)], axis=-1)
 
-    def pixel_rays(self, device) -> torch.Tensor:
-        key = str(torch.device(device))
+    def pixel_rays(self, device, reciprocal: bool = False) -> torch.Tensor:
+        key = (str(torch.device(device)), reciprocal)
         cache = self.__dict__.setdefault("_rays", {})  # frozen dataclass: no setattr
         if key not in cache:
-            cache[key] = torch.from_numpy(self.pixel_rays_np()).to(device)
+            cache[key] = torch.from_numpy(self.pixel_rays_np(reciprocal)).to(device)
         return cache[key]
 
-    def back_project(self, depth: torch.Tensor) -> torch.Tensor:
+    def back_project(self, depth: torch.Tensor, reciprocal: bool = False) -> torch.Tensor:
         """Depth [H, W] -> camera-frame vertex image [H, W, 3]."""
-        return self.pixel_rays(depth.device) * depth[..., None]
+        return self.pixel_rays(depth.device, reciprocal) * depth[..., None]
 
-    def vertex_image_world(self, depth: torch.Tensor, R_w_c, t_w_c) -> torch.Tensor:
+    def vertex_image_world(self, depth: torch.Tensor, R_w_c, t_w_c, reciprocal: bool = False) -> torch.Tensor:
         """Depth + host pose -> world-frame vertex image [H, W, 3]."""
-        return transform_points(self.back_project(depth), R_w_c, t_w_c)
+        return transform_points(self.back_project(depth, reciprocal), R_w_c, t_w_c)
 
     def project(self, points_c: torch.Tensor):
         """Camera-frame points [..., 3] -> (u [..,], v [..], z [..]), float pixel coords."""
@@ -87,22 +99,47 @@ def _host_pose(R_w_c, t_w_c):
     return R, t
 
 
+def fma_dot3(x, coeffs):
+    """fma(x2, c2, fma(x1, c1, x0 * c0)): XLA CPU's float32 dot of a 3-vector,
+    the product of j = 0 rounded, then j = 1 and j = 2 each fused."""
+    acc = x[0] * coeffs[0]
+    for j in (1, 2):
+        acc = fma32(x[j], coeffs[j], acc)
+    return acc
+
+
 def transform_points(p: torch.Tensor, R_w_c, t_w_c) -> torch.Tensor:
-    """Camera points p [..., 3] -> world (p @ R.T + t), R and t host float32."""
+    """Camera points p [..., 3] -> world (p @ R.T + t), R and t host float32.
+
+    Rounds as XLA CPU compiles the reference's `pts_c @ R_w_c.T + t_w_c`
+    (`khronos_tpu/geometry/camera.py:58`, and the renderer's rotation einsum):
+    component i is the fma chain over j = 0, 1, 2 (`fma_dot3`), then
+    `+ t[i]` as a rounding of its own. Bit for bit in
+    tests/test_torch_contraction.py, alone and inside the reference's fused
+    frame step."""
     R, t = _host_pose(R_w_c, t_w_c)
-    cols = [
-        p[..., 0] * R[i][0] + p[..., 1] * R[i][1] + p[..., 2] * R[i][2] + t[i]
-        for i in range(3)
-    ]
-    return torch.stack(cols, dim=-1)
+    x = [p[..., j] for j in range(3)]
+    return torch.stack([fma_dot3(x, R[i]) + t[i] for i in range(3)], dim=-1)
 
 
-def world_to_camera(p_w, R_w_c, t_w_c):
+def world_to_camera(p_w, R_w_c, t_w_c, scale=None):
     """World points (a list of 3 component tensors) -> camera-frame
-    components [R^T (p - t)]_i, summed j = 0, 1, 2."""
+    components [R^T (p - t)]_i; with `scale`, the points are p_w * scale and
+    each p_w[j] * scale - t[j] is one fused rounding (as XLA CPU compiles
+    voxel centers less t in the reference's integrate_frame).
+
+    Rounds as XLA CPU compiles the reference's
+    `einsum("ji,xyzj->xyzi", R_w_c, p - t)` (`map/active_volume.py:179`):
+    components 0 and 1 are the plain chain (each product rounded, summed
+    j = 0, 1, 2), component 2 the fma chain. Bit for bit in
+    tests/test_torch_contraction.py."""
     R, t = _host_pose(R_w_c, t_w_c)
-    d = [p_w[j] - t[j] for j in range(3)]
-    return [d[0] * R[0][i] + d[1] * R[1][i] + d[2] * R[2][i] for i in range(3)]
+    if scale is None:
+        d = [p_w[j] - t[j] for j in range(3)]
+    else:
+        d = [fma32(p_w[j], scale, -t[j]) for j in range(3)]
+    out = [d[0] * R[0][i] + d[1] * R[1][i] + d[2] * R[2][i] for i in range(2)]
+    return out + [fma_dot3(d, [R[0][2], R[1][2], R[2][2]])]
 
 
 def voxel_floor(points: torch.Tensor, voxel_size: float) -> torch.Tensor:

@@ -29,7 +29,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from khronos_tpu_torch import resolve_device, true_div, u32_bits
+from khronos_tpu_torch import fma32, resolve_device, sqrt32, u32_bits
 from khronos_tpu_torch.config import check_ge, check_gt
 from khronos_tpu_torch.geometry.camera import Camera, voxel_floor, world_to_camera
 from khronos_tpu_torch.ops.dense import all_pool3, any_pool3
@@ -143,13 +143,16 @@ def voxel_centers(state: VolumeState, voxel_size: float) -> torch.Tensor:
     return torch.stack(_center_components(state, voxel_size), dim=-1)
 
 
-def _center_components(state: VolumeState, voxel_size: float):
-    """Per-axis center coordinates, broadcast to [X, Y, Z] each."""
+def _center_components(state: VolumeState, voxel_size: Optional[float]):
+    """Per-axis center coordinates, broadcast to [X, Y, Z] each; in voxels
+    (index + 0.5) when voxel_size is None."""
     dev = state.tsdf.device
     shape = state.tsdf.shape
     comps = []
     for axis, (n, o) in enumerate(zip(shape, _origin(state))):
-        c = ((torch.arange(n, dtype=torch.int32, device=dev) + o).to(torch.float32) + 0.5) * voxel_size
+        c = (torch.arange(n, dtype=torch.int32, device=dev) + o).to(torch.float32) + 0.5
+        if voxel_size is not None:
+            c = c * voxel_size
         view = [1, 1, 1]
         view[axis] = n
         comps.append(c.view(view).expand(shape))
@@ -201,6 +204,9 @@ def pack_pixels(depth: torch.Tensor, color: torch.Tensor, labels: torch.Tensor, 
     return packed.reshape(-1, 2).view(torch.float32)
 
 
+INV_255 = float(np.float32(1.0) / np.float32(255.0))
+
+
 def integrate_frame(
     config: VolumeConfig,
     camera: Camera,
@@ -224,11 +230,15 @@ def integrate_frame(
     t_now = float(np.float32(t_now))
     tau = float(np.float32(config.truncation_distance))
     shape = state.tsdf.shape
-    pc = world_to_camera(_center_components(state, config.voxel_size), R_w_c, t_w_c)
+    # XLA CPU rounds the reference's projection so (probed on its compiled
+    # integrate_frame, tests/test_torch_contraction.py): each center less t
+    # in one rounding, fma(index + 0.5, voxel, -t); R^T by world_to_camera's
+    # rule; the pixel coordinates fma(x / z, f, c)
+    pc = world_to_camera(_center_components(state, None), R_w_c, t_w_c, scale=config.voxel_size)
     z = pc[2]
     safe_z = torch.where(z > 1e-6, z, 1e-6)
-    u = pc[0] / safe_z * camera.fx + camera.cx
-    v = pc[1] / safe_z * camera.fy + camera.cy
+    u = fma32(pc[0] / safe_z, camera.fx, camera.cx)
+    v = fma32(pc[1] / safe_z, camera.fy, camera.cy)
     in_img = (z > 1e-6) & camera.in_image(u, v)
     # clamp in float first: an out-of-range float->int cast is undefined (the
     # index only matters where in_img holds)
@@ -241,16 +251,13 @@ def integrate_frame(
     pix = gather_rows(packed_img, lin_pix)
     d = pix[:, 0].reshape(shape)
     w_bits = pix.view(torch.int32)[:, 1].reshape(shape)
-    pix_color = true_div(
-        torch.stack([w_bits & 0xFF, (w_bits >> 8) & 0xFF, (w_bits >> 16) & 0xFF], dim=-1).to(torch.float32),
-        255.0,
-    )
+    pix_rgb = torch.stack([w_bits & 0xFF, (w_bits >> 8) & 0xFF, (w_bits >> 16) & 0xFF], dim=-1).to(torch.float32)
     pix_label = ((w_bits >> 24) & 0x7F) - 1
     pix_excluded = ((w_bits >> 31) & 1) > 0
 
     valid_pix = in_img & (d > camera.min_range) & (d <= camera.max_range)
     # along-ray signed distance (projective): scale z-difference by range/z
-    range_scale = torch.sqrt(pc[0] * pc[0] + pc[1] * pc[1] + z * z) / safe_z
+    range_scale = sqrt32(fma32(z, z, fma32(pc[0], pc[0], pc[1] * pc[1]))) / safe_z
     sdf = (d - z) * range_scale
 
     upd = valid_pix & (sdf > -tau) & (z <= camera.max_range) & ~pix_excluded
@@ -261,12 +268,13 @@ def integrate_frame(
     w = state.weight
     w_new = torch.where(upd, (w + 1.0).clamp_max(config.max_weight), w)
     sdf_c = sdf.clamp(-tau, tau)
-    tsdf_new = torch.where(upd, (state.tsdf * w + sdf_c) / (w + 1.0), state.tsdf)
+    tsdf_new = torch.where(upd, fma32(state.tsdf, w, sdf_c) / (w + 1.0), state.tsdf)
 
     near_surface = upd & (sdf.abs() <= tau)
     cw = w.clamp_max(20.0)[..., None]
+    # pix_color = rgb / 255 (XLA: times the float32 reciprocal), fused into the sum
     color_new = torch.where(
-        near_surface[..., None], (state.color * cw + pix_color) / (cw + 1.0), state.color
+        near_surface[..., None], fma32(pix_rgb, INV_255, state.color * cw) / (cw + 1.0), state.color
     )
     # winner-take-all semantic fusion (counting argmax)
     has_label = near_surface & (pix_label >= 0)

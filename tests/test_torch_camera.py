@@ -3,8 +3,9 @@
 Seeded depth images and poses go through the JAX camera and the port's. Rays,
 back-projection, projection and the in-image test compute the same float32
 operations in the same order and must match bit for bit. The world-frame
-vertex image is a 3x3 matmul in the reference and an elementwise sum in the
-port, so it may differ by rounding: held to 1e-6 m (a few ulp at 5 m)."""
+vertex image is a 3x3 matmul in the reference and elementwise fused
+multiply-adds in the port (XLA CPU's rounding, bit for bit in
+tests/test_torch_contraction.py): held here to 1e-6 m (a few ulp at 5 m)."""
 
 import numpy as np
 import jax.numpy as jnp

@@ -5,8 +5,8 @@ JAX step and the port's step from one shared start state, frame by frame, for
 every closed-set detector combination at detection stride 1 and 2, with and
 without semantic motion seeding. Id images, pixel counts, categories and
 cluster ids must match bit for bit. Coordinate-valued stats (bbox extremes,
-point samples) come from the vertex image, which the reference computes with
-a 3x3 matmul and the port elementwise, so they may differ by an ulp: held to
+point samples) come from the vertex image, whose rounding the port copies
+from XLA CPU (bit for bit in tests/test_torch_contraction.py): held here to
 1e-6 m (about 2 ulp at 5 m). Centroid sums add those terms in another order:
 rtol 1e-5. The volume state as in tests/torch_parity.assert_states_match."""
 

@@ -130,9 +130,3 @@ def test_scene_and_label_space_match_reference():
     jl, tl = jsyn.default_label_space(), tsyn.default_label_space()
     np.testing.assert_array_equal(jl.is_object_lut(), tl.is_object_lut())
     np.testing.assert_array_equal(jl.is_dynamic_lut(), tl.is_dynamic_lut())
-
-
-def test_noise_is_a_later_slice():
-    cfg = tsyn.SyntheticSequenceConfig(noise=object())
-    with pytest.raises(NotImplementedError):
-        tsyn.SyntheticSequence(tsyn.office_scene(), cfg, device="cpu")

@@ -71,9 +71,9 @@ def torch_label_space(ls) -> TLabelSpace:
 
 def assert_states_match(jax_state, torch_state, float_atol: float = 1e-5):
     """Integer and bool fields bit for bit; float fields equal where either
-    side is infinite, else within float_atol (the reference's einsum
-    projection rounds differently from the port's elementwise one, by at
-    most a few ulp of the signed distance)."""
+    side is infinite, else within float_atol (the port follows XLA CPU's
+    rounding of the projection and the update, tests/test_torch_contraction.py
+    holds it bit for bit; the tolerance covers paths that round otherwise)."""
     from khronos_tpu_torch.map.active_volume import state_to_numpy
 
     got = state_to_numpy(torch_state)
