@@ -182,6 +182,26 @@ class ActiveWindow:
         self._bus_unflushed: List[torch.Tensor] = []  # packed stats not yet on a bus
         self._bus_metas: List[list] = []  # emission entries whose meta rides the next bus
         self._bus_pending = collections.deque()  # (n_stats, entries, HostCopy)
+        self._sinks: List = []  # per-frame debug sinks (addKhronosSink parity)
+        self._build_fused_step()
+
+    def add_sink(self, sink) -> None:
+        """Register a per-frame sink called as sink(frame, aw, output) after
+        each spin_once (reference ActiveWindow::addKhronosSink,
+        active_window.h:116; used by eval.visualizers.ActiveWindowVisualizer)."""
+        self._sinks.append(sink)
+
+    def __getstate__(self):
+        """Checkpoint support: the built step is session-local (rebuilt on
+        restore), and so are the sinks. Host copies in flight pickle as
+        landed copies (utils/host_copy.py)."""
+        state = self.__dict__.copy()
+        state.pop("_fused_step", None)
+        state["_sinks"] = []
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
         self._build_fused_step()
 
     def _build_fused_step(self) -> None:
@@ -335,6 +355,8 @@ class ActiveWindow:
                 self._last_output_s = t_now
                 with Timer("active_window/extract_output", frame.stamp_ns):
                     output = self._extract_output(frame)
+        for sink in self._sinks:
+            sink(frame, self, output)
         return output
 
     def _instances(self, frame: FrameData) -> torch.Tensor:

@@ -14,9 +14,9 @@ optimized trajectory corrections (kimera_pgmo-style deformation).
 
 The host logic is the reference's. The device work (the pose-graph solve,
 the mesh deformation) runs on `device`: CUDA unless the caller passes
-device="cpu". The mesh accumulator is the native one (`native.py`). Only the
-dense solver is ported: `solver="schur"` raises until `backend/distributed.py`
-is ported.
+device="cpu". The mesh accumulator is the native one (`native.py`). The
+solve is the dense one (`factor_graph.py`), or with `solver="schur"` the
+Schur elimination of the mesh-control block (`distributed.py`).
 """
 
 from __future__ import annotations
@@ -92,8 +92,7 @@ class BackendConfig:
     sigma_object_merge_trans: float = 0.2
     sigma_object_merge_rot: float = 0.2
     # 'dense': single-device dense GN (graphs of 10^2-10^3 nodes).
-    # 'schur' (Schur-eliminate the mesh-control block, backend/distributed.py)
-    # is not ported yet and raises
+    # 'schur': Schur-eliminate the mesh-control block (backend/distributed.py)
     solver: str = "dense"
     # LC consistency gate (r4 endurance finding): on a drift-free stretch
     # every return-leg loop closure triggered a full solve that moved
@@ -127,10 +126,6 @@ class Backend:
     def __init__(self, config: BackendConfig, device=None):
         """device: where the solve and the deformation run; CUDA unless the
         caller passes device="cpu" (raises when no GPU is visible)."""
-        if config.solver != "dense":
-            raise NotImplementedError(
-                f"solver '{config.solver}' is not ported yet (a later slice: backend/distributed.py)"
-            )
         self.config = config
         self.device = resolve_device(device)
         self.graph = fg.FactorGraphData()
@@ -344,7 +339,14 @@ class Backend:
     # ------------------------------------------------------------------
     def optimize(self) -> fg.OptimizeResult:
         with Timer("backend/optimize"):
-            self._opt_result = fg.optimize(self.graph, self.config.optimizer, device=self.device)
+            if self.config.solver == "schur":
+                from khronos_tpu_torch.backend.distributed import optimize_backend_graph
+
+                self._opt_result = optimize_backend_graph(
+                    self.graph, self.agent_keys, config=self.config.optimizer, device=self.device
+                )
+            else:
+                self._opt_result = fg.optimize(self.graph, self.config.optimizer, device=self.device)
             self.num_optimizations += 1
             # geometry epoch: bump only when the solve actually MOVED the
             # estimates that SHAPE the map — agent and mesh-control nodes

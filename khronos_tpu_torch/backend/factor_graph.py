@@ -159,8 +159,10 @@ def _weighted_error(node_R, node_t, f: _Factors, b_weight) -> torch.Tensor:
     return torch.sum(r_bw**2) + torch.sum(r_pw**2)
 
 
-def _linearize_and_solve(node_R, node_t, f: _Factors, b_weight, damping: float):
-    """One GN/LM step: returns (delta [N,6], total weighted error)."""
+def _normal_equations(node_R, node_t, f: _Factors, b_weight):
+    """The linearised system at the current nodes: (H [6N, 6N], g [6N], total
+    weighted error), H = J^T J and g = J^T r from the dense weighted
+    Jacobian."""
     N = node_R.shape[0]
     F, P = f.b_i.shape[0], f.p_i.shape[0]
     dev, dt = node_R.device, node_R.dtype
@@ -193,8 +195,14 @@ def _linearize_and_solve(node_R, node_t, f: _Factors, b_weight, damping: float):
     J[rows_p, (f.p_i[:, None] * 6 + six)[:, None, :]] = J_p * f.p_info[:, :, None]
     r = torch.cat([r_bw.reshape(-1), r_pw.reshape(-1)])
 
-    H = J.T @ J
-    g = J.T @ r
+    err = torch.sum(r_bw**2) + torch.sum(r_pw**2)
+    return J.T @ J, J.T @ r, err
+
+
+def _linearize_and_solve(node_R, node_t, f: _Factors, b_weight, damping: float):
+    """One GN/LM step: returns (delta [N,6], total weighted error)."""
+    N = node_R.shape[0]
+    H, g, err = _normal_equations(node_R, node_t, f, b_weight)
     # LM damping + gauge regularization (the damping is a float32 scalar, as
     # in the reference)
     H.diagonal().add_(float(np.float32(damping) + np.float32(1e-6)))
@@ -203,7 +211,6 @@ def _linearize_and_solve(node_R, node_t, f: _Factors, b_weight, damping: float):
     # a matrix that is not positive definite gives NaN, as the reference's
     # Cholesky solve does (the LM loop then rejects the step)
     delta = torch.where(info == 0, delta, float("nan"))
-    err = torch.sum(r_bw**2) + torch.sum(r_pw**2)
     return delta.reshape(N, 6), err
 
 
@@ -263,11 +270,13 @@ def _factors(graph: FactorGraphData, device) -> _Factors:
     )
 
 
-def optimize(graph: FactorGraphData, config: OptimizerConfig = None, device=None) -> OptimizeResult:
+def optimize(graph: FactorGraphData, config: OptimizerConfig = None, device=None, step_fn=None) -> OptimizeResult:
     """Run robust pose-graph optimization; returns optimized poses (host).
 
     device: where the linear algebra runs; CUDA unless the caller passes
-    device="cpu"."""
+    device="cpu". step_fn(node_R, node_t, weights, damping) -> (delta [N, 6],
+    err) replaces the dense linear step: the Schur solver
+    (backend/distributed.py) plugs in here and inherits this GNC/LM loop."""
     config = config or OptimizerConfig()
     dev = resolve_device(device)
     N = graph.num_nodes
@@ -291,12 +300,16 @@ def optimize(graph: FactorGraphData, config: OptimizerConfig = None, device=None
     weights = torch.where(shadow_t, 0.0, 1.0)
     robust_t = torch.from_numpy(robust).to(dev) & ~shadow_t
 
+    if step_fn is None:
+        def step_fn(node_R, node_t, weights, damping):
+            return _linearize_and_solve(node_R, node_t, f, weights, damping)
+
     def run_gn(node_R, node_t, weights, iters):
         damping = config.init_damping
         prev_err = np.inf
         it = 0
         for it in range(iters):
-            delta, err = _linearize_and_solve(node_R, node_t, f, weights, damping)
+            delta, err = step_fn(node_R, node_t, weights, damping)
             err = float(err)
             if not np.isfinite(err):
                 damping *= 10

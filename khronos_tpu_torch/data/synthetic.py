@@ -5,7 +5,9 @@ indoor scenes (the office, the apartment and the four-room hard scene: a
 room, static objects with semantic labels, objects with presence intervals,
 humans walking along waypoint paths) and a camera orbit or waypoint tour,
 rendered to depth / color / semantic-label / instance images by
-sphere-tracing the scene SDF on the device, the open-set embeddings
+sphere-tracing the scene SDF on the device (rounded as XLA CPU rounds the
+reference's compiled renderer, tests/test_torch_contraction.py: all but the
+final depth's rsqrt bit for bit), the open-set embeddings
 (`instance_features`, `background_embeddings`: numpy's generators from the
 reference's seeds, bit for bit), the drifted odometry (`odometry_pose`, the
 same random walk as the reference: numpy's generator from the same seed), and
@@ -113,9 +115,25 @@ class Scene:
         return tuple(torch.from_numpy(a).to(device) for a in self.host_arrays(t))
 
 
+def _sum_sq3(v: torch.Tensor) -> torch.Tensor:
+    """x*x + y*y + z*z over the last axis of 3 as XLA CPU reduces
+    `jnp.linalg.norm`'s squares from its zero: fma(z, z, fma(y, y, x * x))."""
+    x, y, z = v.unbind(-1)
+    return fma32(z, z, fma32(y, y, x * x))
+
+
 def _norm3(v: torch.Tensor) -> torch.Tensor:
-    """Euclidean norm over the last axis of 3 (summed x, y, z in order)."""
-    return torch.sqrt(v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1] + v[..., 2] * v[..., 2])
+    """Euclidean norm over the last axis of 3, rounded as the reference's
+    compiled `jnp.linalg.norm` (`_sum_sq3`, then a correctly rounded root)."""
+    return sqrt32(_sum_sq3(v))
+
+
+def _box_norm(d: torch.Tensor) -> torch.Tensor:
+    """|max(d, 0)| over the last axis of 3 as XLA CPU computes the box SDF's
+    norm: its reduction starts from x*x + y*y, which LLVM contracts into
+    fma(x, x, y * y), then fma(z, z, .) and a correctly rounded root."""
+    x, y, z = d.clamp_min(0.0).unbind(-1)
+    return sqrt32(fma32(z, z, fma32(x, x, y * y)))
 
 
 def _primitive_sdf(kinds, centers, halfs, p):
@@ -123,10 +141,16 @@ def _primitive_sdf(kinds, centers, halfs, p):
     negative inside; the room is the complement of its box)."""
     q = p[None] - centers[:, None, None, :]
     d = q.abs() - halfs[:, None, None, :]
-    box = _norm3(d.clamp_min(0.0)) + d.amax(dim=-1).clamp_max(0.0)
+    box = _box_norm(d) + d.amax(dim=-1).clamp_max(0.0)
     sphere = _norm3(q) - halfs[:, None, None, 0]
     k = kinds[:, None, None]
     return torch.where(k == BOX, box, torch.where(k == SPHERE, sphere, -box))
+
+
+def march_point(dirs: torch.Tensor, t_acc: torch.Tensor, t) -> torch.Tensor:
+    """The sphere tracer's point t + dirs * t_acc, one fused multiply-add a
+    component as XLA CPU computes it inside the reference's march."""
+    return fma32(dirs, t_acc[..., None], t)
 
 
 def rotate_rays(rays_c: torch.Tensor, R_w_c) -> torch.Tensor:
@@ -142,10 +166,7 @@ def _render(kinds, centers, halfs, labels, colors, present, rays_c, R_w_c, t_w_c
     hit_ok) images. R_w_c / t_w_c are host float32."""
     t = torch.from_numpy(np.asarray(t_w_c, np.float32)).to(rays_c.device)
     dirs_w = rotate_rays(rays_c, R_w_c)
-    # unit rays, world frame; the norm as XLA CPU rounds the reference's
-    # jnp.linalg.norm here: sqrt(fma(z, z, fma(y, y, x * x)))
-    x, y, z = dirs_w[..., 0], dirs_w[..., 1], dirs_w[..., 2]
-    dirs = dirs_w / sqrt32(fma32(z, z, fma32(y, y, x * x)))[..., None]
+    dirs = dirs_w / _norm3(dirs_w)[..., None]  # unit rays, world frame
     inf = torch.full((), float("inf"), device=rays_c.device)
 
     def scene_sdf(p):
@@ -156,17 +177,21 @@ def _render(kinds, centers, halfs, labels, colors, present, rays_c, R_w_c, t_w_c
     done = torch.zeros((H, W), dtype=torch.bool, device=rays_c.device)
     far = np.float32(max_range) * np.float32(1.5)
     for _ in range(n_steps):
-        p = t + dirs * t_acc[..., None]
-        sd = scene_sdf(p).amin(dim=0)
+        sd = scene_sdf(march_point(dirs, t_acc, t)).amin(dim=0)
         t_new = torch.where(done, t_acc, t_acc + sd.clamp(1e-4, 0.5))
         done = done | (sd < 1e-3) | (t_new > far)
         t_acc = t_new
 
-    sd_final = scene_sdf(t + dirs * t_acc[..., None])
+    sd_final = scene_sdf(march_point(dirs, t_acc, t))
     hit_prim = sd_final.argmin(dim=0)
     hit_ok = (sd_final.amin(dim=0) < 5e-3) & (t_acc <= far)
-    # euclidean t -> z-depth: rays_c = (x, y, 1), so unit-ray z = 1/|ray_c|
-    depth = torch.where(hit_ok, t_acc / _norm3(rays_c), 0.0)
+    # euclidean t -> z-depth: rays_c = (x, y, 1), so unit-ray z = 1/|ray_c|.
+    # XLA CPU rewrites the division into t * rsqrt(|ray_c|^2) and computes
+    # the rsqrt by a hardware estimate refined once, which is 1 ulp off the
+    # correctly rounded value for about 14% of inputs; the port takes the
+    # correctly rounded rsqrt, the nearest it can compute on every device.
+    rsqrt = (1.0 / torch.sqrt(_sum_sq3(rays_c).double())).float()
+    depth = torch.where(hit_ok, t_acc * rsqrt, 0.0)
     label_img = torch.where(hit_ok, labels[hit_prim], -1)
     color_img = torch.where(hit_ok[..., None], colors[hit_prim], 0.0)
     return depth, label_img, color_img, hit_prim, hit_ok

@@ -13,11 +13,14 @@ other.
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from khronos_tpu_torch.ops import native
 
 launches = 0
+_count_lock = threading.Lock()  # stage threads launch too
 
 
 def gather_rows_plain(img: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -63,5 +66,6 @@ def gather_rows_cuda(img: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         lib.khr_gather_rows(img.data_ptr(), idx.data_ptr(), out.data_ptr(), rows, channels, idx.shape[0], stream),
         "khr_gather_rows",
     )
-    launches += 1
+    with _count_lock:
+        launches += 1
     return out

@@ -23,6 +23,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -44,6 +45,7 @@ SIGNATURES = {
     "khr_gather_rows": (_P, _P, _P, _L, _I, _L, _P),
 }
 
+_lock = threading.Lock()  # stage threads may make the first kernel call at once
 _lib = None
 build_info: dict = {}  # seconds, library path and ptxas report of this process's load
 
@@ -91,21 +93,22 @@ def _compile(target: Path) -> str:
 def load_library():
     """The loaded kernel library, built from `csrc/` on first use."""
     global _lib
-    if _lib is not None:
-        return _lib
-    t0 = time.perf_counter()
-    target = _library_path()
-    report = "(cached build)"
-    if not target.exists():
-        report = _compile(target)
-    lib = ctypes.CDLL(str(target))
-    for name, argtypes in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
-    build_info.update(seconds=time.perf_counter() - t0, path=str(target), ptxas=report)
-    _lib = lib
-    return lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        t0 = time.perf_counter()
+        target = _library_path()
+        report = "(cached build)"
+        if not target.exists():
+            report = _compile(target)
+        lib = ctypes.CDLL(str(target))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+        build_info.update(seconds=time.perf_counter() - t0, path=str(target), ptxas=report)
+        _lib = lib
+        return lib
 
 
 def check(err: int, name: str) -> None:

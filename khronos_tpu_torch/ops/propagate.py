@@ -20,12 +20,15 @@ tensor, `propagate_labels_3d_fixpoint_plain`, a loop with the same exit.
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from khronos_tpu_torch.ops import native
 from khronos_tpu_torch.ops.dense import max_pool3
 
 launches = 0
+_count_lock = threading.Lock()  # stage threads launch too
 
 TILE = (8, 4, 26)  # csrc/propagate.cu: the tile interior (TX, TY, TZ = 32 - 2 D)
 DEPTH = 3  # csrc/propagate.cu: rounds between two barriers (D)
@@ -135,5 +138,6 @@ def launch(labels: torch.Tensor, growable: torch.Tensor, iterations: int):
         ),
         "khr_propagate",
     )
-    launches += 1
+    with _count_lock:
+        launches += 1
     return out, ws

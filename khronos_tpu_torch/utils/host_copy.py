@@ -7,6 +7,9 @@ Each pull is a non-blocking copy into pinned host memory on the current
 stream, followed by a CUDA event; the host polls the event and reads the copy
 only once it has landed, so the frame loop never waits for the device. CPU
 tensors need no copy and are ready at once.
+
+A copy pickles (for checkpoints) as its landed host arrays: pickling waits
+for it, and it restores as a copy that is already ready.
 """
 
 from __future__ import annotations
@@ -38,3 +41,13 @@ class HostCopy:
         if self.event is not None:
             self.event.synchronize()
         return self.host[i].numpy()
+
+    def __getstate__(self):
+        if self.event is not None:
+            self.event.synchronize()
+        return {"tag": self.tag, "host": [h.numpy().copy() for h in self.host]}
+
+    def __setstate__(self, state):
+        self.tag = state["tag"]
+        self.host = [torch.from_numpy(a) for a in state["host"]]
+        self.event = None

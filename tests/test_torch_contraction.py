@@ -12,6 +12,16 @@ compiled reference (`khronos_tpu_torch.fma32`):
   components 0 and 1 the plain chain, component 2 the fma chain
   (`world_to_camera`).
 
+The renderer's sphere march (`data/synthetic.py:126-186`): the point
+t + dirs * t_acc is one fma a component; the sphere's norm reduces its squares
+from zero, fma(z, z, fma(y, y, x * x)); the box's reduction starts from
+x*x + y*y, which LLVM contracts into fma(x, x, y * y), then fma(z, z, .).
+With these the march's t_hit is bit-exact; the final depth t_hit / |ray_c|
+is compiled into t_hit * rsqrt(|ray_c|^2) with XLA's AVX-512 rsqrt14
+estimate refined by two Newton steps, which the port cannot reproduce on
+every device: it multiplies by the correctly rounded rsqrt (at most 2 ulps
+of depth apart, on about 15% of the pixels).
+
 Each expression alone, bit for bit. Then inside the reference's compiled
 programs, where XLA also fuses the operations around the dots: the volume
 state after `integrate_frame` and after the fused frame step, the fused
@@ -83,6 +93,78 @@ def test_renderer_ray_rotation_matches_reference_einsum(hw):
         want = np.asarray(ref(jnp.asarray(R), jnp.asarray(rays.numpy())))
         got = tsyn.rotate_rays(rays, R).numpy()
         np.testing.assert_array_equal(got, want)
+
+
+def test_renderer_march_point_matches_reference():
+    """synthetic.py:169's `t_w_c + dirs * t_acc[..., None]` as the march body
+    consumes it (q = p - centre, synthetic.py:128), jitted: one fma a
+    component, bit for bit."""
+    rng = np.random.default_rng(5)
+    ref = jax.jit(lambda d, ta, t, c: (t + d * ta[..., None])[None] - c[:, None, None])
+    d = rng.normal(size=(96, 128, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    for _ in range(4):
+        ta = rng.uniform(0, 9, (96, 128)).astype(np.float32)
+        t = rng.uniform(-5, 5, 3).astype(np.float32)
+        c = rng.uniform(-3, 3, (4, 3)).astype(np.float32)
+        want = np.asarray(ref(*(jnp.asarray(a) for a in (d, ta, t, c))))
+        p = tsyn.march_point(torch.from_numpy(d), torch.from_numpy(ta), torch.from_numpy(t))
+        np.testing.assert_array_equal((p[None] - torch.from_numpy(c)[:, None, None]).numpy(), want)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_renderer_sdf_norms_match_reference(seed):
+    """synthetic.py:126-136's `_primitive_sdf` (the box norm of max(d, 0) and
+    the sphere norm of q), jitted and vmapped over the primitives as the
+    renderer does, on random points: bit for bit."""
+    rng = np.random.default_rng(seed)
+    kinds = np.array([jsyn.ROOM, jsyn.BOX, jsyn.SPHERE, jsyn.BOX, jsyn.SPHERE, jsyn.BOX], np.int32)
+    centers = rng.uniform(-3, 3, (6, 3)).astype(np.float32)
+    halfs = rng.uniform(0.2, 2, (6, 3)).astype(np.float32)
+    p = rng.uniform(-5, 5, (128, 160, 3)).astype(np.float32)
+    ref = jax.jit(lambda k, c, h, p: jax.vmap(lambda k, c, h: jsyn._primitive_sdf(k, c, h, p))(k, c, h))
+    want = np.asarray(ref(kinds, centers, halfs, p))
+    got = tsyn._primitive_sdf(*(torch.from_numpy(a) for a in (kinds, centers, halfs, p))).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def _reference_render_with_t_hit():
+    """A copy of the reference's jitted `_render` that also returns t_hit."""
+    import inspect
+
+    src = inspect.getsource(jsyn._render).replace(
+        "    return depth, label_img, color_img, hit_prim, hit_ok",
+        "    return depth, label_img, color_img, hit_prim, hit_ok, t_hit")
+    ns = dict(vars(jsyn))
+    exec(src, ns)
+    return ns["_render"]
+
+
+@pytest.mark.parametrize("scene_name,index", [("office", 10), ("apartment", 10), ("apartment", 85)])
+def test_renderer_march_bit_exact_inside_reference_program(scene_name, index):
+    """The whole 96-step march at 60x80: the port's depth is the reference's
+    own t_hit times the correctly rounded rsqrt of |ray_c|^2, bit for bit
+    (so t_hit is bit-exact); labels, colour, hit mask and primitive bit for
+    bit; depth within 2 ulps of the reference's (its rsqrt estimate)."""
+    dur = 10.0
+    cfg = jsyn.SyntheticSequenceConfig(duration=dur, fps=10.0, height=60, width=80, fx=50.0, fy=50.0, cx=40.0, cy=30.0)
+    scene = jsyn.office_scene(dur) if scene_name == "office" else jsyn.apartment_scene(dur)
+    jseq = jsyn.SyntheticSequence(scene, cfg)
+    tscene = tsyn.office_scene(dur) if scene_name == "office" else tsyn.apartment_scene(dur)
+    t = index / cfg.fps
+    R, pos = jseq.pose_at(t)
+    want = [np.asarray(a) for a in _reference_render_with_t_hit()(
+        *jseq.scene.device_arrays(t), jseq._rays, jnp.asarray(R), jnp.asarray(pos), jnp.float32(cfg.max_range),
+        cfg.height, cfg.width)]
+    rays = torch.from_numpy(np.array(jseq._rays))
+    got = [a.numpy() for a in tsyn._render(*tscene.device_arrays(t, "cpu"), rays, R, pos, cfg.max_range)]
+    for name, a, b in zip(("labels", "color", "hit_prim", "hit_ok"), want[1:5], got[1:5]):
+        np.testing.assert_array_equal(b, a, err_msg=name)
+    rsqrt = (1.0 / torch.sqrt(torch.from_numpy(
+        np.asarray(tsyn._sum_sq3(rays))).double())).float().numpy()
+    np.testing.assert_array_equal(got[0], np.where(want[4], want[5] * rsqrt, 0.0).astype(np.float32))
+    ulps = np.abs(got[0].view(np.int32).astype(np.int64) - want[0].view(np.int32))
+    assert ulps.max() <= 2 and want[4].mean() > 0.5
 
 
 @pytest.mark.parametrize("shape", [(64, 64, 16), (40, 24, 48)])

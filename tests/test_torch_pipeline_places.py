@@ -194,11 +194,29 @@ def test_cli_runs_with_places_evaluation_and_viewer(tmp_path, capsys):
 
 
 def test_deferred_places_updates_raise():
-    cam = tsyn.SyntheticSequence(tsyn.office_scene(1.0), tsyn.SyntheticSequenceConfig(height=8, width=8),
-                                 device="cpu").camera
-    pipe = TPipeline(tbuild(TPipelineConfig, {"active_window": {"volumetric_map": {"grid_shape": [16, 16, 8]}}}),
-                     cam, device="cpu")
-    with pytest.raises(NotImplementedError):
-        pipe.process_frame(None, defer_cd=True)
-    with pytest.raises(NotImplementedError):
-        pipe.take_places_update()
+    """Deferred places updates (`defer_cd` with the incremental places layer):
+    they used to raise in the port; now, as in the reference, process_frame
+    defers the re-extraction and take_places_update hands it over once, with
+    the reference's centre and stamp on the same frames, and running it
+    gives the reference's layer."""
+    cam, frames = _sequence_and_frames()
+    spec = {**copy.deepcopy(CD_PIPELINE), "places": {}}
+    jpipe = JPipeline(jbuild(JPipelineConfig, spec), cam)
+    tpipe = TPipeline(tbuild(TPipelineConfig, spec), torch_camera(cam), device="cpu")
+    f, R, t = frames[0]
+    jpipe.process_frame(JFrame(stamp_ns=f["stamp_ns"], depth=jnp.asarray(f["depth"]), color=jnp.asarray(f["color"]),
+                               labels=jnp.asarray(f["labels"]), R_w_c=R, t_w_c=t), defer_cd=True)
+    import torch
+
+    from khronos_tpu_torch.active_window.frame_data import FrameData as TFrame
+
+    tpipe.process_frame(TFrame(stamp_ns=f["stamp_ns"], depth=torch.from_numpy(f["depth"]),
+                               color=torch.from_numpy(f["color"]), labels=torch.from_numpy(f["labels"]),
+                               R_w_c=R, t_w_c=t), defer_cd=True)
+    np.testing.assert_array_equal(tpipe._places_due[0], np.asarray(jpipe._places_due[0]))
+    assert tpipe._places_due[1] == jpipe._places_due[1]
+    jjob, tjob = jpipe.take_places_update(), tpipe.take_places_update()
+    assert tjob is not None and tpipe.take_places_update() is None
+    jjob()
+    tjob()
+    assert_layers_equal(jpipe.places_extractor.snapshot_layer(), tpipe.places_extractor.snapshot_layer())

@@ -1,20 +1,19 @@
 """Port parity: data/synthetic.py clean frames (the sphere tracer).
 
-The two renderers trace the same rays through the same SDF, but the
-reference rotates the rays with an einsum and the port elementwise, and the
-96-step march accumulates those ulp differences. Whether a grazing ray stops
-is a float decision: it can stop one step earlier on one side, inside the
-tracer's 1e-3 m hit threshold, or land on the other side of a silhouette.
-Budget for such flips: at most 1e-4 of the pixels may have a depth more than
+The port's renderer follows XLA CPU's rounding of the reference's march
+(tests/test_torch_contraction.py holds each operation): labels, colour and
+instances come out bit for bit, and depth differs only through the final
+rsqrt, by at most 2 ulps (`test_config_frames_match_reference`, the
+configs' own 240x320 frames). The older cases below keep their budget for
+flips on silhouettes: at most 1e-4 of the pixels may have a depth more than
 1e-5 m off (none may be more than 1e-3 m off), and at most 1e-4 of the
 pixels may carry another label, only on silhouettes (pixels whose 3x3
-neighbourhood holds more than one label in the reference). Measured at this
-size: no label differs and depth agrees to 2e-6 m; at 96x128, 2 of 12,288
-pixels had a depth up to 6e-4 m off."""
+neighbourhood holds more than one label in the reference)."""
 
 import numpy as np
 import pytest
 import torch
+import yaml
 
 from khronos_tpu.data import synthetic as jsyn
 from khronos_tpu_torch.data import synthetic as tsyn
@@ -130,3 +129,26 @@ def test_scene_and_label_space_match_reference():
     jl, tl = jsyn.default_label_space(), tsyn.default_label_space()
     np.testing.assert_array_equal(jl.is_object_lut(), tl.is_object_lut())
     np.testing.assert_array_equal(jl.is_dynamic_lut(), tl.is_dynamic_lut())
+
+
+@pytest.mark.parametrize("config,index", [("office", 10), ("office", 85), ("apartment", 10), ("apartment", 85)])
+def test_config_frames_match_reference(config, index):
+    """configs/{office,apartment}_synthetic.yaml's own 240x320 frames through
+    both packages' SyntheticDataset: labels, colour, instances and poses bit
+    for bit; depth within 2 ulps (the reference's rsqrt estimate), equal
+    wherever nothing is hit."""
+    from khronos_tpu.data.datasets import SyntheticDataset as JDataset
+    from khronos_tpu_torch.data.datasets import SyntheticDataset as TDataset
+
+    with open(f"configs/{config}_synthetic.yaml") as fh:
+        spec = dict(yaml.safe_load(fh)["dataset"])
+    spec.pop("kind", None)
+    want = JDataset(**spec).seq.render_frame(index)
+    got = TDataset(device="cpu", **spec).seq.render_frame(index)
+    assert got["depth"].shape == (240, 320)
+    for key in ("labels", "color", "instances", "R_w_c", "t_w_c"):
+        np.testing.assert_array_equal(np.asarray(want[key]), np.asarray(got[key]), err_msg=key)
+    wd, gd = np.asarray(want["depth"]), got["depth"].numpy()
+    ulps = np.abs(gd.view(np.int32).astype(np.int64) - wd.view(np.int32))
+    assert ulps.max() <= 2
+    np.testing.assert_array_equal(gd[wd == 0], 0.0)
