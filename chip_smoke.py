@@ -135,9 +135,18 @@ Phases, in order; any failure raises and the run exits non-zero:
    objects and agents bit-identical to the uninterrupted run's. (In 6,
    backend_path also replays its outputs with solver="schur" on the card and
    the CPU: agents within 2e-6 m.);
-11. sweep: kernel A built and timed at other rounds per step and tile shapes
+11. sharding_path: the voxel grid split into slabs over a device mesh
+   (parallel/sharding.py) at the main path's widths: the fused step over 1
+   and 2 shards against the one-grid step with cropping off (ids, labels,
+   integer state exact; floats within 1e-5, packed stats within 2e-3 /
+   1e-5); the window cropped, with n_devices=1 and with n_devices=2 (both
+   slabs on this card) timed in turns, A and B launched once a slab a frame;
+   A and B on the recorded slab inputs, bit for bit; the office config as
+   pipeline_path runs it with pipeline.active_window.n_devices=2 through
+   run.main, its quality held to REFERENCE_QUALITY;
+12. sweep: kernel A built and timed at other rounds per step and tile shapes
    (phase_sweep), the measurements behind the ones csrc/propagate.cu uses;
-12. prints the kernels line as JSON, then `{"ok": true, "device": ...}` last.
+13. prints the kernels line as JSON, then `{"ok": true, "device": ...}` last.
 
 With --profile PATH it also traces a few more frames with torch.profiler and
 writes the device time by kernel, the device operations per frame and the
@@ -1985,10 +1994,10 @@ def recorded_run(drive):
             "peak_mib": torch.cuda.max_memory_allocated() / 2**20}
 
 
-def require_launches(name, run) -> None:
+def require_launches(name, run, slabs=1) -> None:
     n, rooms = run["n"], run["room_segmentations"]
-    require(run["launches"] == {"propagate": n + rooms, "gather": n},
-            f"{name}: launches {run['launches']}: want A {n} + {rooms}, B {n}")
+    require(run["launches"] == {"propagate": slabs * n + rooms, "gather": slabs * n},
+            f"{name}: launches {run['launches']}: want A {slabs} x {n} + {rooms}, B {slabs} x {n}")
 
 
 @contextlib.contextmanager
@@ -2049,11 +2058,11 @@ def run_config(config, overrides, out_dir, device="cuda"):
     return run
 
 
-def check_config_run(name, run, config, out_dir, quality_bars, device="cuda", evaluate=True, overrides=()):
+def check_config_run(name, run, config, out_dir, quality_bars, device="cuda", evaluate=True, overrides=(), slabs=1):
     """What every new path checks: the finished flag and the output files, the
-    frame count, A once a frame plus once a room segmentation and B once a
-    frame, static objects with meshes, a finite map, and the map quality
-    against the JAX package's CPU runs of the same command."""
+    frame count, A once a slab a frame plus once a room segmentation and B
+    once a slab a frame, static objects with meshes, a finite map, and the
+    map quality against the JAX package's CPU runs of the same command."""
     import yaml
 
     from khronos_tpu_torch.stm.spatio_temporal_map import SpatioTemporalMap
@@ -2074,7 +2083,7 @@ def check_config_run(name, run, config, out_dir, quality_bars, device="cuda", ev
     require(n == round(dataset["duration"] * dataset["fps"]), f"{name}: {n} frames")
     require(run["room_segmentations"] >= 1, f"{name}: no room segmentation")
     if device == "cuda":
-        require_launches(name, run)
+        require_launches(name, run, slabs)
     pipe = run["pipe"]
     final = pipe.map.get_dsg(pipe.map.latest_ns())
     static = [o for o in final.objects.values() if not o.is_dynamic and len(o.mesh_faces)]
@@ -2806,6 +2815,248 @@ def phase_checkpoint_resume(card_name, office):
     return result
 
 
+# ---- sharding_path: the grid split into slabs over a device mesh ----
+
+SHARDING_MODES = (("cropped", 0), ("n_devices=1", 1), ("n_devices=2", 2))  # (name, n_devices); 0 = no mesh
+SHARDING_OVERRIDES = PIPELINE_OVERRIDES + ("pipeline.active_window.n_devices=2",)
+SHARDED_STATS_ATOL, SHARDED_STATS_RTOL = 2e-3, 1e-5  # tests/test_tools.py's bars for the packed stats
+SHARDED_FLOAT_ATOL = 1e-5  # the volume's float fields, sharded vs one grid
+
+
+def sharded_step_parity(seq, frames, config, devices, counts=(1, 2)):
+    """The fused step with cropping off on one grid (on devices[0]), and
+    over meshes of each of `counts` shards round-robin over `devices`, from
+    one start on the same frames (on devices[0]): id images, cluster counts
+    and ids, labels and every integer field bit for bit; packed stats and
+    float fields to the bars above."""
+    from khronos_tpu_torch.active_window import fused_step as fs
+    from khronos_tpu_torch.data import synthetic as syn
+    from khronos_tpu_torch.map import active_volume as av
+    from khronos_tpu_torch.parallel import sharding
+
+    vol, md, od = config.volumetric_map, config.motion_detector.config, config.object_detector.config
+    ls = syn.default_label_space()
+    meshes = {n: sharding.make_mesh(n, devices=devices) for n in counts}
+    steps = {0: fs.make_frame_step(vol, seq.camera, md, od, ls, detection_stride=2, crop=False)}
+    for n in counts:
+        steps[n] = fs.make_frame_step(vol, seq.camera, md, od, ls, detection_stride=2, mesh=meshes[n])
+    origin = np.floor(np.asarray(frames[0]["t_w_c"]) / vol.voxel_size - np.asarray(vol.grid_shape) / 2.0)
+    start = av.create(vol, device=meshes[counts[0]].devices[0])._replace(origin=torch.from_numpy(origin.astype(np.int32)))
+    states = {0: start}
+    for n in counts:
+        states[n] = sharding.shard_volume(start, meshes[n])
+    worst_stats = 0.0
+    n_dyn = n_obj = 0
+    for i, f in enumerate(frames):
+        outs = {}
+        for n, step in steps.items():
+            states[n], d, o, p = step(states[n], f["depth"], f["color"], f["labels"], f["R_w_c"], f["t_w_c"], f["t"])
+            outs[n] = (d, o, p)
+        d0, o0, p0 = outs[0]
+        for n in counts:
+            d, o, p = outs[n]
+            require(torch.equal(d, d0) and torch.equal(o, o0), f"sharding_path: id images, {n} shards, frame {i}")
+            k = 2 * fs.MC * 12
+            require(torch.equal(p[:k].view(-1, 12)[:, 9:], p0[:k].view(-1, 12)[:, 9:]),
+                    f"sharding_path: cluster counts or ids, {n} shards, frame {i}")
+            torch.testing.assert_close(p, p0, atol=SHARDED_STATS_ATOL, rtol=SHARDED_STATS_RTOL)
+            worst_stats = max(worst_stats, float((p - p0).abs().max()))
+        n_dyn += int(d0.max())
+        n_obj += int(o0.max())
+    want = av.state_to_numpy(states[0])
+    worst = {}
+    for n in counts:
+        got = av.state_to_numpy(sharding.gather_volume(states[n]))
+        worst[n] = 0.0
+        for name, a, b in zip(got._fields, got, want):
+            if a.dtype.kind == "f":
+                fin = np.isfinite(b)
+                require((np.isfinite(a) == fin).all() and (a[~fin] == b[~fin]).all(), f"sharding_path: {name}")
+                worst[n] = max(worst[n], float(np.abs(a[fin] - b[fin]).max(initial=0.0)))
+            else:
+                require((a == b).all(), f"sharding_path: {name}, {n} shards")
+        require(worst[n] <= SHARDED_FLOAT_ATOL, f"sharding_path: float state, {n} shards: max |diff| {worst[n]}")
+    require(n_dyn > 0 and n_obj > 0, f"sharding_path: dynamic ids {n_dyn}, object ids {n_obj}")
+    log(f"sharding_path: the fused step over {' and '.join(map(str, counts))} shards == the one-grid step with "
+        f"cropping off on "
+        f"{len(frames)} frames (ids, counts, labels, integer state exact; packed stats max |diff| {worst_stats:.3g}; "
+        f"float state max |diff| {worst}); dynamic ids {n_dyn}, object ids {n_obj}")
+    return {"frames": len(frames), "packed_stats_max_abs_diff": worst_stats,
+            "float_state_max_abs_diff": {str(k): v for k, v in worst.items()}, "dynamic_ids": n_dyn,
+            "object_ids": n_obj}
+
+
+def sharded_window(config, seq, frames, n_devices, device, capture=0):
+    """One window at config with n_devices (0: no mesh): WARMUP frames, then
+    FRAMES timed with the kernels' launch counts set to 0 just before and
+    read just after, then `capture` frames with the kernels' inputs cloned,
+    then finish_mapping. Returns ms a frame, launches, the captured inputs,
+    the triangles and the finished tracks' observation stamps."""
+    from khronos_tpu_torch.active_window.active_window import ActiveWindow, ActiveWindowConfig
+    from khronos_tpu_torch.active_window.frame_data import FrameData
+    from khronos_tpu_torch.config import build
+    from khronos_tpu_torch.data import synthetic as syn
+    from khronos_tpu_torch.ops import gather, propagate
+
+    aw = ActiveWindow(build(ActiveWindowConfig, {**config, "n_devices": n_devices}), seq.camera,
+                      syn.default_label_space(), device=device)
+    aw.defer_object_extraction = True
+    outputs = []
+
+    def run(f):
+        frame = FrameData(stamp_ns=f["stamp_ns"], depth=f["depth"], color=f["color"], labels=f["labels"],
+                          R_w_c=f["R_w_c"], t_w_c=f["t_w_c"])
+        out = aw.spin_once(frame)
+        if out is not None:
+            outputs.append(out)
+        return frame
+
+    for f in frames[:WARMUP]:
+        run(f)
+    torch.cuda.synchronize()
+    propagate.launches = 0
+    gather.launches = 0
+    t0 = time.perf_counter()
+    for f in frames[WARMUP: WARMUP + FRAMES]:
+        last = run(f)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {"propagate": propagate.launches, "gather": gather.launches}
+    captured = {"propagate": [], "gather": []}
+    if capture:
+        prop, gat = propagate.propagate_labels_3d_cuda, gather.gather_rows_cuda
+
+        def rec_prop(*a):
+            captured["propagate"].append([x.clone() if torch.is_tensor(x) else x for x in a])
+            return prop(*a)
+
+        def rec_gat(*a):
+            captured["gather"].append([x.clone() for x in a])
+            return gat(*a)
+
+        propagate.propagate_labels_3d_cuda, gather.gather_rows_cuda = rec_prop, rec_gat
+        try:
+            for f in frames[WARMUP + FRAMES: WARMUP + FRAMES + capture]:
+                last = run(f)
+        finally:
+            propagate.propagate_labels_3d_cuda, gather.gather_rows_cuda = prop, gat
+    outputs.append(aw.finish_mapping(last))
+    tracks = sorted(tuple(o.stamp_ns for o in t.observations) for out in outputs for t in (out.pending_tracks or []))
+    return {"ms_per_frame": dt / FRAMES * 1e3, "launches": launches, "captured": captured,
+            "triangles": sum(len(o.mesh_vertices) for o in outputs), "tracks": tracks,
+            "shards": aw.mesh.size if aw.mesh is not None else 0}
+
+
+def sharded_kernel_rows(windows, run):
+    """A and B on the recorded slab inputs of the n_devices=2 window (every
+    call bit-exact against the plain version; A timed on the input with the
+    most growable voxels, B on the first) and on the sharded office run's
+    recorded inputs: the kernels line's rows for the path."""
+    from khronos_tpu_torch.ops import gather, propagate
+
+    cap = windows["n_devices=2"]["captured"]
+    require(len(cap["propagate"]) == 2 * CAPTURED and len(cap["gather"]) == 2 * CAPTURED,
+            f"sharding_path: recorded {len(cap['propagate'])} A and {len(cap['gather'])} B calls in {CAPTURED} frames")
+    a_err = 0
+    for lab, grow, iterations in cap["propagate"]:
+        a_err = max(a_err, check_propagate(propagate, lab, grow, iterations, "sharding_path slab")["max_abs_err"])
+    lab, grow, iterations = max(cap["propagate"], key=lambda c: int(c[1].sum()))
+    a = time_propagate(propagate, f"sharding_path, a slab of 2 extended by {iterations} planes", lab, grow, iterations)
+    b_err = max(check_gather(gather, img, idx, "sharding_path slab") for img, idx in cap["gather"])
+    img, idx = cap["gather"][0]
+    p_ms, k_ms = in_turns(lambda: gather.gather_rows_plain(img, idx), lambda: gather.gather_rows_cuda(img, idx))
+    lib_ms = time_ms(lambda: img[idx])
+    bytes_b = img.nbytes + idx.nbytes + idx.numel() * img.shape[1] * 4
+    launches = windows["n_devices=2"]["launches"]
+    rows = [
+        {"name": "propagate_labels_3d (sharding_path)", "route": "cuda", "source": "khronos_tpu_torch/csrc/propagate.cu",
+         "replaces": "khronos_tpu/ops/pallas/propagate.py:49", "launches": launches["propagate"],
+         "launches_per_frame": launches["propagate"] / FRAMES, "match": True, "max_abs_err": max(a_err, a["max_abs_err"]),
+         "ms": a["us"] * 1e-3, "plain_ms": a["plain_us"] * 1e-3, "bound_ms": a["bound_us"] * 1e-3,
+         "bound_us": a["bound_us"], "bound_by": a["bound_by"], "library_ms": None, "input": a["input"],
+         "shape": list(lab.shape), "iterations": iterations, "rounds": a["rounds"],
+         "active_share": a["active_share"], "growable_share": a["growable_share"],
+         "office_run_launches": run["launches"]["propagate"]},
+        {"name": "gather_rows (sharding_path)", "route": "cuda", "source": "khronos_tpu_torch/csrc/gather.cu",
+         "replaces": "khronos_tpu/ops/pallas/gather_probe.py:32", "launches": launches["gather"],
+         "launches_per_frame": launches["gather"] / FRAMES, "match": True, "max_abs_err": b_err, "ms": k_ms,
+         "plain_ms": p_ms, "bound_ms": bytes_b / HBM_BYTES_PER_S * 1e3, "bound_us": bytes_b / HBM_BYTES_PER_S * 1e6,
+         "bound_by": "bytes", "library_ms": lib_ms, "input": "sharding_path, slab 0 of 2",
+         "shape": [list(img.shape), list(idx.shape)], "office_run_launches": run["launches"]["gather"]},
+    ]
+    for r in rows:
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms'] * 1e3:.1f} us"
+        log(f"kernel {r['name']}: bit-exact on every recorded slab input, {r['ms'] * 1e3:.2f} us on {r['shape']} "
+            f"(plain {r['plain_ms'] * 1e3:.1f} us, library {lib}), bound {r['bound_us']:.3f} us by {r['bound_by']}, "
+            f"{r['launches']} launches in {FRAMES} frames")
+    return rows
+
+
+def phase_sharding_path(card_name, device="cuda", size=(480, 640), grid=(160, 160, 48), overrides=()):
+    """The grid split into slabs (parallel/sharding.py), at the main path's
+    widths (480x640, 160x160x48 at 0.1 m, stride 2, the bench detectors):
+    the fused step over meshes of 1 and 2 shards against the one-grid step
+    with cropping off (sharded_step_parity); the window cropped, with
+    n_devices=1 and with n_devices=2 (both slabs on this card), WARMUP + FRAMES
+    frames each, timed in turns (cropped, 1, 2, 2, 1, cropped), A and B
+    launched once a slab a frame, n_devices 1 and 2 giving the same
+    triangles and finished tracks; A and B on the recorded slab inputs; then
+    the office config as pipeline_path runs it with
+    pipeline.active_window.n_devices=2 through run.main, its quality held to
+    REFERENCE_QUALITY. One card cannot show scaling: two slabs on it cost
+    what they cost. `device`, `size`, `grid` and `overrides` (appended to
+    the office run's) are for a rehearsal on the CPU at a small size."""
+    from khronos_tpu_torch.active_window.active_window import ActiveWindowConfig
+    from khronos_tpu_torch.config import build
+    from khronos_tpu_torch.data import synthetic as syn
+
+    n_total = WARMUP + FRAMES + CAPTURED
+    seq = make_sequence(syn, n_total, size[0], size[1], device)
+    frames = [seq.render_frame(i) for i in range(n_total)]
+    config = {**bench_config(), "volumetric_map": {"grid_shape": list(grid), "voxel_size": 0.1}}
+    parity = sharded_step_parity(seq, frames[:WARMUP + FRAMES], build(ActiveWindowConfig, config), [device])
+
+    windows, ms = {}, {name: [] for name, _ in SHARDING_MODES}
+    for order in (SHARDING_MODES, SHARDING_MODES[::-1]):
+        for name, n in order:
+            w = sharded_window(config, seq, frames, n, device, capture=CAPTURED if name not in windows else 0)
+            ms[name].append(w["ms_per_frame"])
+            slabs = max(n, 1)
+            require(w["launches"] == {"propagate": slabs * FRAMES, "gather": slabs * FRAMES},
+                    f"sharding_path: {name}: launches {w['launches']}, want {slabs} a frame each")
+            windows.setdefault(name, w)
+    one, two = windows["n_devices=1"], windows["n_devices=2"]
+    require(one["shards"] == 1 and two["shards"] == 2, (one["shards"], two["shards"]))
+    require(two["triangles"] == one["triangles"] > 0 and two["tracks"] == one["tracks"] and one["tracks"],
+            f"sharding_path: n_devices=2 gave {two['triangles']} triangles and {len(two['tracks'])} finished tracks, "
+            f"n_devices=1 {one['triangles']} and {len(one['tracks'])}")
+
+    out_dir = ROOT / "build" / "sharding_path"
+    run = run_config(PIPELINE_CONFIG, SHARDING_OVERRIDES + tuple(overrides), out_dir, device)
+    final, static, quality = check_config_run("sharding_path", run, PIPELINE_CONFIG, out_dir, REFERENCE_QUALITY,
+                                              device, overrides=SHARDING_OVERRIDES + tuple(overrides), slabs=2)
+    aw = run["pipe"].active_window
+    require(aw.mesh is not None and aw.mesh.size == 2, "sharding_path: the office run's window is not on 2 shards")
+    result = {
+        "step_parity": parity,
+        "ms_per_frame": {k: statistics.fmean(v) for k, v in ms.items()},
+        "ms_per_frame_runs": ms,
+        "launches": {k: w["launches"] for k, w in windows.items()},
+        "triangles": {k: w["triangles"] for k, w in windows.items()},
+        "finished_tracks": {k: len(w["tracks"]) for k, w in windows.items()},
+        "office": {**summary_of("sharding_path", run, quality), "static_objects": len(static),
+                   "quality_bars": "REFERENCE_QUALITY"},
+        "card": card_name,
+    }
+    log(f"sharding_path ({card_name}): ms a frame at {size[0]}x{size[1]}, grid {list(grid)}, in turns: "
+        + ", ".join(f"{k} {v:.2f} ({', '.join(f'{x:.2f}' for x in ms[k])})" for k, v in result["ms_per_frame"].items())
+        + f"; triangles {result['triangles']}, finished tracks {result['finished_tracks']}; the office run with "
+        f"n_devices=2: {len(static)} static objects with meshes, quality held to REFERENCE_QUALITY")
+    if device == "cuda":
+        result["kernel_rows"] = sharded_kernel_rows(windows, run)
+    return result
+
+
 SWEEP = [(d, tx, ty) for d in (1, 2, 3, 4) for tx, ty in ((8, 8), (8, 4), (4, 8), (4, 4))]
 
 
@@ -2922,7 +3173,10 @@ def main() -> int:
     kernels += async_parity.pop("kernel_rows")
     checkpoint_resume = timed("checkpoint_resume", phase_checkpoint_resume, card, office)
     del office
-    # 11) kernel A at other rounds per step and tile shapes
+    # 11) the grid split into slabs over a device mesh, two slabs on this card
+    sharding_path = timed("sharding_path", phase_sharding_path, card)
+    kernels += sharding_path.pop("kernel_rows")
+    # 12) kernel A at other rounds per step and tile shapes
     sweep = timed("sweep", phase_sweep, main_path)
 
     log(json.dumps({"main_path": {k: main_path[k] for k in ("fps", "ms_per_frame", "window_ms_per_frame",
@@ -2931,7 +3185,8 @@ def main() -> int:
                     "backend_path": backend_path, "pipeline_path": pipeline_path,
                     "apartment_path": apartment_path, "openset_path": openset_path, "jackal_path": jackal_path,
                     "endurance_path": endurance_path, "async_parity": async_parity,
-                    "checkpoint_resume": checkpoint_resume, "propagate_sweep": sweep, "phase_s": phase_s,
+                    "checkpoint_resume": checkpoint_resume, "sharding_path": sharding_path,
+                    "propagate_sweep": sweep, "phase_s": phase_s,
                     "card": card}))
     log(f"card: {card}")
     log(json.dumps({"kernels": kernels}))

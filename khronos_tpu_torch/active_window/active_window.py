@@ -29,8 +29,11 @@ tracks on `pending_tracks` and a later `finalize_output` extracts them (the
 reference's backend-thread extraction); `_inflight_tracks` keeps their frames
 in the frame buffer until then. `finish_mapping` always extracts inline.
 
-What the port leaves out, raising NotImplementedError: device-mesh sharding
-(`n_devices >= 1`).
+With `n_devices >= 1` the voxel grid is split into slabs along x over a
+device mesh (`parallel/sharding.py`): the fused step runs on every slab with
+halo exchange (cropping off), and the scroll and the mesh emission run per
+slab too; the modular path gathers the grid onto the first device for its
+stages. `n_devices=1` is the one-shard mesh.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ from khronos_tpu_torch.config import Plugin, plugin_field
 from khronos_tpu_torch.geometry.camera import Camera
 from khronos_tpu_torch.map import active_volume as av
 from khronos_tpu_torch.map import meshing
+from khronos_tpu_torch.parallel import sharding
 from khronos_tpu_torch.stm.scene_graph import KhronosObject
 from khronos_tpu_torch.utils.host_copy import HostCopy
 from khronos_tpu_torch.utils.logging import clog
@@ -97,7 +101,12 @@ class ActiveWindowConfig:
     tracker: Plugin = plugin_field("tracker", "MaxIouTracker")
     object_extractor: Plugin = plugin_field("object_extractor", "MeshObjectExtractor")
     mesh_max_cells: int = 8192
-    # device-mesh sharding of the grid (a later slice of the port); 0 = one device
+    # device-mesh mode: the voxel grid split into n_devices slabs along x
+    # (parallel/sharding.py), one per shard. 0 = the plain single-device path
+    # (with frustum cropping); 1 = a one-shard mesh (the mesh code path
+    # without fan-out). Needs grid_shape[0] % n_devices == 0; cropping is off
+    # under sharding (a camera-dependent crop does not fit a static slab
+    # layout).
     n_devices: int = 0
 
 
@@ -140,18 +149,16 @@ class ActiveWindow:
         self, config: ActiveWindowConfig, camera: Camera, label_space: LabelSpace, device=None
     ):
         """device: where the volume and every frame's work live; CUDA unless
-        the caller passes device="cpu" (raises when no GPU is visible)."""
-        if config.n_devices >= 1:
-            raise NotImplementedError(
-                "device-mesh sharding (n_devices >= 1) is not ported yet (a later "
-                "slice: parallel/sharding.py)"
-            )
+        the caller passes device="cpu" (raises when no GPU is visible). With
+        n_devices >= 1 every slab lies on that device ("cuda": the current
+        card)."""
         self.device = resolve_device(device)
         self.config = config
         self.camera = camera
         self.label_space = label_space
         vol_cfg = config.volumetric_map
-        self.state = av.create(vol_cfg, device=self.device)
+        self._build_grid()
+        self.state = self.grid.place(av.create(vol_cfg, device=self.device))
         self._origin_np = self.state.origin.numpy().copy()
         self._initialized_origin = False
         self.motion_detector = config.motion_detector.create(vol_cfg, camera)
@@ -191,17 +198,34 @@ class ActiveWindow:
         active_window.h:116; used by eval.visualizers.ActiveWindowVisualizer)."""
         self._sinks.append(sink)
 
+    def _build_grid(self) -> None:
+        """The volume's layout: one grid, or with n_devices >= 1 that many
+        slabs over a mesh on self.device (`parallel/sharding.py`)."""
+        shape = self.config.volumetric_map.grid_shape
+        self.mesh = None
+        self.grid = fs.DenseGrid(shape)
+        if self.config.n_devices >= 1:
+            self.mesh = sharding.make_mesh(self.config.n_devices, devices=[self.device])
+            self.device = self.mesh.devices[0]
+            self.grid = sharding.SlabGrid(self.mesh, shape)
+
     def __getstate__(self):
         """Checkpoint support: the built step is session-local (rebuilt on
-        restore), and so are the sinks. Host copies in flight pickle as
-        landed copies (utils/host_copy.py)."""
+        restore), and so are the sinks and the device mesh. Host copies in
+        flight pickle as landed copies (utils/host_copy.py)."""
         state = self.__dict__.copy()
         state.pop("_fused_step", None)
+        state.pop("mesh", None)
+        state.pop("grid", None)
         state["_sinks"] = []
         return state
 
     def __setstate__(self, state):
         self.__dict__.update(state)
+        # slabs come back on the restoring device: rebuild the mesh there
+        # and put each slab on its shard's device
+        self._build_grid()
+        self.state = self.grid.place(self.state)
         self._build_fused_step()
 
     def _build_fused_step(self) -> None:
@@ -227,7 +251,9 @@ class ActiveWindow:
             od_cfg,
             self.label_space,
             detection_stride=config.detection_stride,
+            crop=self.mesh is None,
             background_embeddings=bg_emb if self._openset_fused else None,
+            mesh=self.mesh,
         )
         if self._openset_fused:
             # the step's feature rows: the prompts' width, else the config's
@@ -269,16 +295,15 @@ class ActiveWindow:
             if not self._initialized_origin:
                 shape = np.asarray(vol_cfg.grid_shape)
                 origin = np.floor(cam_pos / vol_cfg.voxel_size - shape / 2.0).astype(np.int32)
-                self.state = self.state._replace(origin=torch.from_numpy(origin))
+                self.state = self.grid.with_origin(self.state, origin)
                 self._origin_np = origin
                 self._initialized_origin = True
             elif av.needs_recenter(vol_cfg, self.state, cam_pos, self._origin_np):
                 with Timer("active_window/scroll", frame.stamp_ns):
                     shift = av.recenter_shift(vol_cfg, self.state, cam_pos, self._origin_np)
-                    out_mask = av.scroll_out_mask(self.state, shift)
-                    fmask = meshing.forced_emission_mask(self.state, out_mask)
+                    fmask = self.grid.emission_mask(self.state, "forced", shift)
                     self._emit_mesh(fmask, rounds=self._scroll_rounds(shift))
-                    self.state = av.scroll(vol_cfg, self.state, shift)
+                    self.state = self.grid.scroll(vol_cfg, self.state, shift)
                     self._origin_np = self._origin_np + np.asarray(shift, np.int32)
 
             frame.depth = self._on_device(frame.depth, torch.float32)
@@ -379,7 +404,16 @@ class ActiveWindow:
     def _modular_step(self, frame: FrameData, t_now: float) -> None:
         """Steps 1-4 stage by stage: motion detection on the pre-integration
         volume, object detection, tracking on the frame's full vertex image,
-        then integration (dynamic pixels masked out) and archival."""
+        then integration (dynamic pixels masked out) and archival. A sharded
+        grid is gathered onto the first device for the stages and split
+        again after them."""
+        self.state = self.grid.whole(self.state)
+        try:
+            self._modular_stages(frame, t_now)
+        finally:
+            self.state = self.grid.place(self.state)
+
+    def _modular_stages(self, frame: FrameData, t_now: float) -> None:
         vol_cfg = self.config.volumetric_map
         zeros = torch.zeros(frame.depth.shape, dtype=torch.int32, device=self.device)
         if self.motion_detector is not None:
@@ -481,7 +515,7 @@ class ActiveWindow:
         self._flush_tracker_queue()
         if self.tracker is not None:
             self._pending_tracks.extend(self.tracker.finish())
-        self._emit_mesh(meshing.finish_emission_mask(self.state))
+        self._emit_mesh(self.grid.emission_mask(self.state, "finish"))
         stamp = frame.stamp_ns if frame is not None else 0
         R = np.asarray(frame.R_w_c) if frame is not None else np.eye(3, dtype=np.float32)
         t = np.asarray(frame.t_w_c) if frame is not None else np.zeros(3, np.float32)
@@ -502,7 +536,7 @@ class ActiveWindow:
     def _extract_output(self, frame: FrameData) -> ActiveWindowOutput:
         # one round: leftover cells stay unmeshed and re-emit at the next
         # output; its meta rides the next bus
-        self._emit_mesh(meshing.archived_emission_mask(self.state), drain=False)
+        self._emit_mesh(self.grid.emission_mask(self.state, "archived"), drain=False)
         return self._build_output(frame.stamp_ns, np.asarray(frame.R_w_c), np.asarray(frame.t_w_c))
 
     def _scroll_rounds(self, shift) -> int:
@@ -534,9 +568,7 @@ class ActiveWindow:
         max_cells = self.config.mesh_max_cells
 
         def one_round(own_meta_copy: bool):
-            self.state, packed, meta = meshing.extract_mesh_async(
-                self.state, emit_mask, vol_cfg, max_cells=max_cells
-            )
+            self.state, packed, meta = self.grid.extract_mesh_async(self.state, emit_mask, vol_cfg, max_cells)
             if own_meta_copy:
                 ent = [packed, HostCopy(meta), None, "meta_copy"]
             else:

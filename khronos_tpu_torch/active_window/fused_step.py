@@ -24,8 +24,12 @@ through kernel A (`ops/propagate.py`), the per-voxel payload lookup of
 With an `InstanceForwardingConfig` the step runs the open-set branch: the
 upstream instance image and per-instance embeddings go in, the count,
 volume and background-prompt filters run on the device, and the packed
-'category' slot carries the original instance index. The device-mesh
-(`mesh=`) variant raises NotImplementedError (a later slice).
+'category' slot carries the original instance index.
+
+With `mesh=` the grid is split into slabs along x over a device mesh
+(`parallel/sharding.py`): the step (and the window's scroll and mesh
+emission) is written once against the grid operations of the volume's
+layout (`DenseGrid` here, `sharding.SlabGrid` for slabs).
 """
 
 from __future__ import annotations
@@ -50,6 +54,7 @@ from khronos_tpu_torch.active_window.object_detection import (
 )
 from khronos_tpu_torch.geometry.camera import Camera, voxel_floor
 from khronos_tpu_torch.map import active_volume as av
+from khronos_tpu_torch.map import meshing
 from khronos_tpu_torch.ops import clusters as cl
 from khronos_tpu_torch.ops.dense import (
     dilate,
@@ -69,6 +74,78 @@ def _scatter_max(n: int, index: torch.Tensor, values: torch.Tensor, fill: int) -
     that starts at `fill` (the reference's `.at[].max`; order-free)."""
     out = torch.full((n,), fill, dtype=torch.int32, device=values.device)
     return out.scatter_reduce_(0, index, values.reshape(-1).to(torch.int32), "amax", include_self=True)
+
+
+class DenseGrid:
+    """The grid operations on one device: a grid value is one tensor over
+    the whole grid (or, in the step, its crop). `parallel/sharding.py::
+    SlabGrid` has the same operations over a grid split into slabs; the
+    step and the window are written once against either."""
+
+    def __init__(self, shape, lin: Optional[torch.Tensor] = None):
+        self.shape = tuple(shape)
+        self.n = shape[0] * shape[1] * shape[2]
+        self.lin = lin  # int32 linear voxel id per cell (the step's)
+
+    def field(self, state: av.VolumeState, name: str):
+        return getattr(state, name)
+
+    def map(self, fn, *grids):
+        """An elementwise function of grids."""
+        return fn(*grids)
+
+    def stencil(self, fn, reach: int, *grids):
+        """A function whose value at a cell depends only on the cells within
+        `reach` of it."""
+        return fn(*grids)
+
+    def route(self, clin: torch.Tensor):
+        """Pixels' linear voxel ids [H*W] -> what scatter_max / gather take."""
+        return clin
+
+    def scatter_max(self, route, values: torch.Tensor, fill: int):
+        return _scatter_max(self.n, route, values, fill).view(self.shape)
+
+    def gather(self, grid: torch.Tensor, route) -> torch.Tensor:
+        return grid.reshape(-1)[route]
+
+    def cluster_stats(self, route, compact, points_w, extra=None):
+        return cl.cluster_stats(compact, points_w, extra=extra, max_clusters=MC)
+
+    def integrate(self, vol_cfg, camera, state, depth, color, labels, excluded, R_w_c, t_w_c, t_now):
+        return av.integrate_frame(vol_cfg, camera, state, depth, color, labels, excluded, R_w_c, t_w_c, t_now)
+
+    def archive(self, vol_cfg, state, t_now):
+        return av.update_archival(vol_cfg, state, t_now)
+
+    # the window's grid passes: place/whole move a VolumeState into and out
+    # of the layout (the modular stages and checkpoints use whole grids)
+
+    def place(self, state):
+        return state
+
+    def whole(self, state):
+        return state
+
+    def with_origin(self, state, origin):
+        return state._replace(origin=torch.from_numpy(np.asarray(origin, np.int32).reshape(3)))
+
+    def scroll(self, vol_cfg, state, shift):
+        return av.scroll(vol_cfg, state, shift)
+
+    def emission_mask(self, state, kind: str, shift=None):
+        """meshing's "archived" or "finish" mask, or "forced": the cells a
+        scroll by `shift` would drop a corner of."""
+        if kind == "archived":
+            return meshing.archived_emission_mask(state)
+        if kind == "finish":
+            return meshing.finish_emission_mask(state)
+        if kind == "forced":
+            return meshing.forced_emission_mask(state, av.scroll_out_mask(state, shift))
+        raise ValueError(f"emission_mask: unknown kind {kind!r}")
+
+    def extract_mesh_async(self, state, mask, vol_cfg, max_cells: int):
+        return meshing.extract_mesh_async(state, mask, vol_cfg, max_cells=max_cells)
 
 
 def make_frame_step(
@@ -101,12 +178,13 @@ def make_frame_step(
     compaction, segment stats) on an s-strided image; TSDF/semantic
     integration stays full-resolution. Cluster pixel counts and size
     thresholds are then in detection-res pixels; the returned id images are
-    nearest-upsampled back to full resolution."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "a device-mesh (sharded) frame step is not ported yet (a later slice: "
-            "parallel/sharding.py)"
-        )
+    nearest-upsampled back to full resolution.
+
+    mesh (a `parallel.sharding.Mesh`): the grid is split into slabs along x,
+    one per shard, and `state` is a `sharding.ShardedVolume`; cropping is off
+    (as in the reference: a camera-dependent crop does not fit a static slab
+    layout). The pixel side runs once, on the mesh's first device, where the
+    images must lie; every grid operation runs on each slab (`SlabGrid`)."""
     if od_cfg is not None and not isinstance(od_cfg, (ConnectedSemanticsConfig, InstanceForwardingConfig)):
         raise NotImplementedError(f"the fused step has no branch for object detector {type(od_cfg).__name__}")
     openset = isinstance(od_cfg, InstanceForwardingConfig)
@@ -145,16 +223,23 @@ def make_frame_step(
 
     # all grid work runs in a camera-centered crop: every voxel within
     # max_range is inside it
-    crop = av.crop_shape_for_camera(vol_cfg, camera) if crop else shape
+    crop = av.crop_shape_for_camera(vol_cfg, camera) if crop and mesh is None else shape
     cropping = any(c < g for c, g in zip(crop, shape))
     n_crop = crop[0] * crop[1] * crop[2]
-    consts = {}  # per-device constants: crop linear ids and the label LUTs
+    consts = {}  # per-device constants: the grid operations and the label LUTs
+    if mesh is not None:
+        from khronos_tpu_torch.parallel import sharding
+
+        slab_grid = sharding.SlabGrid(mesh, shape)
 
     def _consts(dev):
         key = str(dev)
         if key not in consts:
+            grid = slab_grid if mesh is not None else DenseGrid(
+                crop, torch.arange(n_crop, dtype=torch.int32, device=dev).view(crop)
+            )
             consts[key] = (
-                torch.arange(n_crop, dtype=torch.int32, device=dev).view(crop),
+                grid,
                 is_object_lut.to(dev),
                 is_dynamic_lut.to(dev),
                 bg_emb.to(dev) if bg_emb is not None else None,
@@ -168,16 +253,19 @@ def make_frame_step(
         return (lab >= 0) & lut[lab.clamp(0, lut.shape[0] - 1).long()]
 
     def _body(state, depth, color, labels, instances, features, R_w_c, t_w_c, t_now):
-        dev = state.tsdf.device
-        lin, obj_lut, dyn_lut, bg = _consts(dev)
+        dev = depth.device
+        G, obj_lut, dyn_lut, bg = _consts(dev)
         depth_d = depth[::s, ::s]
         labels_d = labels[::s, ::s]
         H, W = depth_d.shape
         points_w = cam_d.vertex_image_world(depth_d, R_w_c, t_w_c, reciprocal=True)  # as compiled
         valid = (depth_d > camera.min_range) & (depth_d <= max_r)
 
-        start = av.crop_start(vol_cfg, state, t_w_c, crop)
-        sub = av.slice_state(state, start, crop) if cropping else state
+        if cropping:
+            start = av.crop_start(vol_cfg, state, t_w_c, crop)
+            sub = av.slice_state(state, start, crop)
+        else:
+            sub = state
 
         vox = voxel_floor(points_w, vol_cfg.voxel_size)
         idx = [vox[..., a] - int(o) for a, o in enumerate(sub.origin.tolist())]
@@ -187,6 +275,7 @@ def make_frame_step(
         ci, cj, ck = (torch.where(in_grid, i, 0) for i in idx)
         # ONE linear scatter index per pixel
         clin = ((ci * crop[1] + cj) * crop[2] + ck).reshape(-1).long()
+        route = G.route(clin)
 
         # ---------------- pixel -> voxel scatters ----------------
         # With both detectors, the seed scan and the per-voxel max object
@@ -200,20 +289,20 @@ def make_frame_step(
             val = torch.where(in_grid, torch.where(pix_class >= 0, pix_class + 2, 1), 0)
             if seed_dyn:
                 val = val * 2 + (in_grid & dyn_pix).to(torch.int32)
-            packed_grid = _scatter_max(n_crop, clin, val, 0).view(crop)
+            packed_grid = G.scatter_max(route, val, 0)
             if seed_dyn:
-                dyn_hit = (packed_grid & 1) == 1
-                packed_grid = packed_grid >> 1
-            scan = packed_grid >= 1
-            vclass = torch.where(packed_grid >= 2, packed_grid - 2, -1)
+                dyn_hit = G.map(lambda p: (p & 1) == 1, packed_grid)
+                packed_grid = G.map(lambda p: p >> 1, packed_grid)
+            scan = G.map(lambda p: p >= 1, packed_grid)
+            vclass = G.map(lambda p: torch.where(p >= 2, p - 2, -1), packed_grid)
         elif md_enabled:
             if seed_dyn:
                 val = in_grid.to(torch.int32) * 2 + (in_grid & dyn_pix).to(torch.int32)
-                packed_grid = _scatter_max(n_crop, clin, val, 0).view(crop)
-                dyn_hit = (packed_grid & 1) == 1
-                scan = packed_grid >= 2
+                packed_grid = G.scatter_max(route, val, 0)
+                dyn_hit = G.map(lambda p: (p & 1) == 1, packed_grid)
+                scan = G.map(lambda p: p >= 2, packed_grid)
             else:
-                scan = _scatter_max(n_crop, clin, in_grid, 0).view(crop) > 0
+                scan = G.map(lambda p: p > 0, G.scatter_max(route, in_grid, 0))
 
         f32 = torch.float32
         zeros3 = torch.zeros((MC, 3), dtype=f32, device=dev)
@@ -221,18 +310,33 @@ def make_frame_step(
         zeros_pts = torch.zeros((MC, K_SAMPLES, 3), dtype=f32, device=dev)
         # ---------------- motion detection ----------------
         if md_enabled:
-            seeds = scan & ((sub.ever_free | dyn_hit) if seed_dyn else sub.ever_free)
-            growable = dilate(seeds, merge_dilation) if merge_dilation > 0 else seeds
-            mlab = propagate_labels_3d(torch.where(seeds, lin, -1), growable, md_cfg.grow_iterations)
+            ever_free = G.field(sub, "ever_free")
+            if seed_dyn:
+                seeds = G.map(lambda sc, ef, dh: sc & (ef | dh), scan, ever_free, dyn_hit)
+            else:
+                seeds = G.map(lambda sc, ef: sc & ef, scan, ever_free)
+            growable = (
+                G.stencil(lambda sd: dilate(sd, merge_dilation), merge_dilation, seeds)
+                if merge_dilation > 0 else seeds
+            )
+            # seed labels are the GLOBAL linear voxel ids (G.lin), so a
+            # component crossing a slab boundary ends with one max label
+            seed_lab = G.map(lambda sd, ln: torch.where(sd, ln, -1), seeds, G.lin)
+            mlab = G.stencil(
+                lambda lab, gr: propagate_labels_3d(lab, gr, md_cfg.grow_iterations),
+                md_cfg.grow_iterations, seed_lab, growable,
+            )
             # one boundary layer: adjacent occupied scan voxels join a cluster
             # but do not extend it
-            spread = max_pool3(mlab)
-            mlab = torch.where(mlab >= 0, mlab, torch.where(scan, spread, -1))
-            mlab = torch.where(scan, mlab, -1)
-            pix_dyn_raw = torch.where(in_grid, mlab.reshape(-1)[clin].view(H, W), -1)
+            spread = G.stencil(max_pool3, 1, mlab)
+            mlab = G.map(
+                lambda m, sp, sc: torch.where(sc, torch.where(m >= 0, m, torch.where(sc, sp, -1)), -1),
+                mlab, spread, scan,
+            )
+            pix_dyn_raw = torch.where(in_grid, G.gather(mlab, route).view(H, W), -1)
             pix_dyn_raw = torch.where(points_w[..., 2] >= md_cfg.min_z, pix_dyn_raw, -1)
             dyn_compact = cl.compact_labels(pix_dyn_raw, MC)
-            d_counts, d_sums, d_bmin, d_bmax = cl.cluster_stats(dyn_compact, points_w, max_clusters=MC)
+            d_counts, d_sums, d_bmin, d_bmax = G.cluster_stats(route, dyn_compact, points_w)
             # nothing downstream reads MeasurementCluster.num_voxels on this path
             d_vox = zeros_i
             d_keep = (d_counts >= md_min_px) & (d_counts <= md_max_px)
@@ -247,20 +351,20 @@ def make_frame_step(
         # ---------------- object detection (3D keyed CC) ----------------
         if od_enabled:
             ok = in_grid & (pix_class >= 0)
-            oclin = torch.where(ok.reshape(-1), clin, 0)
+            oroute = G.route(torch.where(ok.reshape(-1), clin, 0))
             if vclass is None:  # not merged with the motion-detection scatter
-                vclass = _scatter_max(n_crop, oclin, torch.where(ok, pix_class, -1), -1).view(crop)
-            ogrow = vclass >= 0
-            olab = propagate_labels_keyed_3d(
-                torch.where(ogrow, lin, -1), vclass, ogrow, od_cfg.grow_iterations
+                vclass = G.scatter_max(oroute, torch.where(ok, pix_class, -1), -1)
+            olab = G.stencil(
+                lambda lab, vc: propagate_labels_keyed_3d(lab, vc, vc >= 0, od_cfg.grow_iterations),
+                od_cfg.grow_iterations,
+                G.map(lambda vc, ln: torch.where(vc >= 0, ln, -1), vclass, G.lin),
+                vclass,
             )
-            g_class = vclass.reshape(-1)[oclin].view(H, W)
-            g_olab = olab.reshape(-1)[oclin].view(H, W)
+            g_class = G.gather(vclass, oroute).view(H, W)
+            g_olab = G.gather(olab, oroute).view(H, W)
             pix_sem_raw = torch.where(ok & (g_class == pix_class), g_olab, -1)
             sem_compact = cl.compact_labels(pix_sem_raw, MC)
-            s_counts, s_sums, s_bmin, s_bmax, s_cat = cl.cluster_stats(
-                sem_compact, points_w, extra=pix_class, max_clusters=MC
-            )
+            s_counts, s_sums, s_bmin, s_bmax, s_cat = G.cluster_stats(route, sem_compact, points_w, extra=pix_class)
             s_keep = s_counts >= od_min_px
             object_image, s_ids = cl.filter_and_renumber(sem_compact, s_keep)
             s_pts, _ = cl.cluster_point_samples(sem_compact, points_w, K_SAMPLES, MC)
@@ -269,7 +373,7 @@ def make_frame_step(
             inst_d = instances[::s, ::s]
             os_valid = (depth_d > camera.min_range) & (depth_d <= min(camera.max_range, od_cfg.max_range))
             sem_compact = torch.where(os_valid & (inst_d >= 1) & (inst_d <= MC), inst_d - 1, -1)
-            s_counts, s_sums, s_bmin, s_bmax = cl.cluster_stats(sem_compact, points_w, max_clusters=MC)
+            s_counts, s_sums, s_bmin, s_bmax = G.cluster_stats(route, sem_compact, points_w)
             vol = torch.where(s_counts > 0, (s_bmax - s_bmin).clamp_min(0.0).prod(dim=-1), 0.0)
             s_keep = (s_counts >= od_min_px) & (vol >= od_cfg.min_bbox_volume) & (vol <= od_cfg.max_bbox_volume)
             if bg is not None:
@@ -290,12 +394,11 @@ def make_frame_step(
         # ---------------- integrate + archival (full resolution) ----------
         dynamic_image = _upsample(dynamic_image)
         object_image = _upsample(object_image)
-        sub = av.integrate_frame(
+        sub = G.integrate(
             vol_cfg, camera, sub, depth, color, labels, dynamic_image > 0, R_w_c, t_w_c, t_now,
         )
         state = av.unslice_state(state, sub, start) if cropping else sub
-        state = av.update_archival(vol_cfg, state, t_now)
-
+        state = G.archive(vol_cfg, state, t_now)
         # ---------------- pack stats ----------------
         def _stats(sums, bmin, bmax, a, b, c):
             cols = [sums.to(f32), bmin.to(f32), bmax.to(f32)]

@@ -21,9 +21,11 @@ The port solves the unpadded system: on the graphs of
 tests/test_torch_distributed.py the padded and unpadded solves give the same
 poses to within float rounding (held there), so padding changes no result.
 
-What waits for the sharding slice (parallel/sharding.py): assembling the
-factors sharded over several devices (`mesh=`), which raises
-NotImplementedError.
+With `mesh=` (a `parallel.sharding.Mesh`) the factors are split into one
+contiguous part per shard, as the reference shards its padded factor axis:
+each shard linearises its part at the replicated nodes on its device, and
+H, g and the error are summed in shard order on the solving device (no
+float atomics; the sum differs from one device's by float rounding).
 """
 
 from __future__ import annotations
@@ -37,26 +39,45 @@ from khronos_tpu_torch import resolve_device
 from khronos_tpu_torch.backend import factor_graph as fg
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "assembling factors sharded over a device mesh is not ported yet "
-            "(a later slice: parallel/sharding.py)"
+def _parts(n: int, shards: int):
+    """Contiguous [start, stop) of each shard over n items: ceil(n / shards)
+    each, the last ones shorter (the reference pads n to a multiple)."""
+    k = -(-n // shards)
+    return [(min(i * k, n), min((i + 1) * k, n)) for i in range(shards)]
+
+
+def _normal_equations(node_R, node_t, f: fg._Factors, b_weight, mesh=None):
+    """fg._normal_equations; with a mesh, over the factors split into the
+    mesh's shards, summed in shard order on node_R's device."""
+    if mesh is None:
+        return fg._normal_equations(node_R, node_t, f, b_weight)
+    dev = node_R.device
+    H = g = err = None
+    for d, (b0, b1), (p0, p1) in zip(mesh.devices, _parts(f.b_i.shape[0], mesh.size), _parts(f.p_i.shape[0], mesh.size)):
+        if b1 == b0 and p1 == p0:
+            continue  # an empty part adds nothing
+        part = fg._Factors(
+            **{k: getattr(f, k)[b0:b1].to(d) for k in ("b_i", "b_j", "b_R", "b_t", "b_info")},
+            **{k: getattr(f, k)[p0:p1].to(d) for k in ("p_i", "p_R", "p_t", "p_info")},
         )
+        Hi, gi, ei = (x.to(dev) for x in fg._normal_equations(node_R.to(d), node_t.to(d), part, b_weight[b0:b1].to(d)))
+        H, g, err = (Hi, gi, ei) if H is None else (H + Hi, g + gi, err + ei)
+    if H is None:  # a graph without factors
+        return fg._normal_equations(node_R, node_t, f, b_weight)
+    return H, g, err
 
 
 def assemble_normal_equations(graph: fg.FactorGraphData, mesh=None, weights: Optional[np.ndarray] = None,
                               device=None):
     """(H [6N, 6N], g [6N], err) of the graph at its current nodes, the
     between factors weighted by `weights` (default 1), on `device`."""
-    _no_mesh(mesh)
     dev = resolve_device(device)
     node_R = torch.from_numpy(np.stack(graph.node_R).astype(np.float32)).to(dev)
     node_t = torch.from_numpy(np.stack(graph.node_t).astype(np.float32)).to(dev)
     w = np.ones(graph.num_between, np.float32)
     if weights is not None:
         w[:] = np.asarray(weights, np.float32)[: graph.num_between]
-    return fg._normal_equations(node_R, node_t, fg._factors(graph, dev), torch.from_numpy(w).to(dev))
+    return _normal_equations(node_R, node_t, fg._factors(graph, dev), torch.from_numpy(w).to(dev), mesh)
 
 
 def _cholesky_solve(L: torch.Tensor, info: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
@@ -102,8 +123,8 @@ def optimize_distributed(graph: fg.FactorGraphData, mesh=None, n_pose_nodes: Opt
     """factor_graph.optimize with the linear step replaced by the Schur
     elimination: the GNC/LM loop is shared, so the solver inherits its
     robustness semantics. Nodes must be ordered [poses | controls];
-    n_pose_nodes defaults to all (a plain pose graph)."""
-    _no_mesh(mesh)
+    n_pose_nodes defaults to all (a plain pose graph). With mesh= the
+    factors are linearised per shard (see the module docstring)."""
     N = graph.num_nodes
     if N == 0:
         return fg.OptimizeResult(np.zeros((0, 3, 3)), np.zeros((0, 3)), 0.0, np.zeros(0, bool))
@@ -112,7 +133,7 @@ def optimize_distributed(graph: fg.FactorGraphData, mesh=None, n_pose_nodes: Opt
     f = fg._factors(graph, dev)
 
     def step_fn(node_R, node_t, weights, damping):
-        H, g, err = fg._normal_equations(node_R, node_t, f, weights)
+        H, g, err = _normal_equations(node_R, node_t, f, weights, mesh)
         # the reference adds 1e-6 to the Python float before its float32 cast
         return solve_schur(H, g, n_a, float(damping) + 1e-6).reshape(N, 6), err
 
@@ -125,7 +146,6 @@ def optimize_backend_graph(graph: fg.FactorGraphData, pose_node_ids, mesh=None,
     and deformation-control nodes are interleaved in insertion order: permute
     the nodes to [poses | controls], Schur-eliminate the control block,
     permute back. Returns the result in the ORIGINAL node order."""
-    _no_mesh(mesh)
     N = graph.num_nodes
     pose_ids = list(pose_node_ids)
     pose_set = set(pose_ids)
@@ -140,7 +160,7 @@ def optimize_backend_graph(graph: fg.FactorGraphData, pose_node_ids, mesh=None,
     g2.p_i = [int(inv[i]) for i in graph.p_i]
     for name in ("b_R", "b_t", "b_sqrt_info", "b_robust", "b_shadow", "p_R", "p_t", "p_sqrt_info"):
         setattr(g2, name, list(getattr(graph, name)))
-    res = optimize_distributed(g2, n_pose_nodes=len(pose_ids), config=config, device=device)
+    res = optimize_distributed(g2, mesh=mesh, n_pose_nodes=len(pose_ids), config=config, device=device)
     return fg.OptimizeResult(
         node_R=res.node_R[inv], node_t=res.node_t[inv], final_error=res.final_error,
         outlier_mask=res.outlier_mask, iterations=res.iterations,

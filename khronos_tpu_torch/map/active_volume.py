@@ -168,12 +168,13 @@ def world_to_index(state: VolumeState, points: torch.Tensor, voxel_size: float):
     return idx, ok
 
 
-def _reset_values(config: VolumeConfig, state: VolumeState, reset: torch.Tensor) -> VolumeState:
+def _reset_values(config: VolumeConfig, state: VolumeState, reset: torch.Tensor, pool_cells: bool = True) -> VolumeState:
     """Clear voxel data where `reset` (bool grid) — used for re-observation of
-    archived voxels and for scroll-in regions."""
+    archived voxels and for scroll-in regions. pool_cells=False leaves the
+    meshed flags to the caller."""
     r3 = reset[..., None]
     # a reset voxel invalidates the meshed flag of every cell touching it
-    cell_dirty = any_pool3(reset)
+    cell_meshed = state.cell_meshed & ~any_pool3(reset) if pool_cells else state.cell_meshed
     return state._replace(
         tsdf=torch.where(reset, config.truncation_distance, state.tsdf),
         weight=torch.where(reset, 0.0, state.weight),
@@ -185,7 +186,7 @@ def _reset_values(config: VolumeConfig, state: VolumeState, reset: torch.Tensor)
         last_occupied=torch.where(reset, -INF, state.last_occupied),
         ever_free=state.ever_free & ~reset,
         archived=state.archived & ~reset,
-        cell_meshed=state.cell_meshed & ~cell_dirty,
+        cell_meshed=cell_meshed,
     )
 
 
@@ -227,6 +228,20 @@ def integrate_frame(
 
     exclusion_mask: bool [H, W], True = pixel excluded (dynamic object).
     R_w_c, t_w_c: host float32 pose; t_now: seconds (rounded to float32)."""
+    packed_img = pack_pixels(depth, color, labels, exclusion_mask)
+    state, cand, upd = integrate_frame_local(config, camera, state, packed_img, R_w_c, t_w_c, t_now)
+    return integrate_frame_pools(state, all_pool3(cand), any_pool3(upd))
+
+
+def integrate_frame_local(
+    config: VolumeConfig, camera: Camera, state: VolumeState, packed_img: torch.Tensor, R_w_c, t_w_c, t_now,
+):
+    """integrate_frame up to its two 3x3x3 stencils: (state with every
+    per-voxel update applied, the ever-free candidates `cand`, the updated
+    voxels `upd`). `integrate_frame_pools` finishes it from all_pool3(cand)
+    and any_pool3(upd); a slab of a sharded grid pools them over a one-plane
+    halo from its neighbours (parallel/sharding.py). packed_img is
+    pack_pixels' [H*W, 2] payload image on the state's device."""
     t_now = float(np.float32(t_now))
     tau = float(np.float32(config.truncation_distance))
     shape = state.tsdf.shape
@@ -246,7 +261,6 @@ def integrate_frame(
     vi = torch.round(v - 0.5).clamp(-1, camera.height).to(torch.int32).clamp(0, camera.height - 1)
 
     # per-voxel payload lookup (kernel B): depth + one packed word per voxel
-    packed_img = pack_pixels(depth, color, labels, exclusion_mask)
     lin_pix = (vi * camera.width + ui).reshape(-1)
     pix = gather_rows(packed_img, lin_pix)
     d = pix[:, 0].reshape(shape)
@@ -262,8 +276,9 @@ def integrate_frame(
 
     upd = valid_pix & (sdf > -tau) & (z <= camera.max_range) & ~pix_excluded
 
-    # lazy reset of archived voxels being re-observed (new session data)
-    state = _reset_values(config, state, upd & state.archived)
+    # lazy reset of archived voxels being re-observed (fresh data); its
+    # cell-meshed stencil is left to the pools: reset voxels are updated ones
+    state = _reset_values(config, state, upd & state.archived, pool_cells=False)
 
     w = state.weight
     w_new = torch.where(upd, (w + 1.0).clamp_max(config.max_weight), w)
@@ -295,11 +310,7 @@ def integrate_frame(
     occ = (w_new > 0.0) & (tsdf_new < config.occupancy_threshold)
     last_occupied = torch.where(occ, t_now, state.last_occupied)
     cand = (w_new > 0.0) & (last_occupied + config.temporal_buffer < t_now)
-    ever_free = state.ever_free | all_pool3(cand)
-
-    # integration dirties the meshed flag of touched cells
-    cell_dirty = any_pool3(upd)
-    return state._replace(
+    state = state._replace(
         tsdf=tsdf_new,
         weight=w_new,
         color=color_new,
@@ -308,9 +319,16 @@ def integrate_frame(
         first_obs=first_obs,
         last_obs=last_obs,
         last_occupied=last_occupied,
-        ever_free=ever_free,
-        cell_meshed=state.cell_meshed & ~cell_dirty,
     )
+    return state, cand, upd
+
+
+def integrate_frame_pools(state: VolumeState, cand_all: torch.Tensor, upd_any: torch.Tensor) -> VolumeState:
+    """The end of integrate_frame: ever-free where the whole 3x3x3
+    neighbourhood is a candidate (cand_all = all_pool3(cand)), and
+    integration dirties the meshed flag of every cell touching an updated
+    voxel (upd_any = any_pool3(upd))."""
+    return state._replace(ever_free=state.ever_free | cand_all, cell_meshed=state.cell_meshed & ~upd_any)
 
 
 def crop_shape_for_camera(config: VolumeConfig, camera: Camera) -> Tuple[int, int, int]:
@@ -403,8 +421,9 @@ def active_mask(config: VolumeConfig, state: VolumeState, t_now) -> torch.Tensor
 def needs_recenter(
     config: VolumeConfig, state: VolumeState, cam_pos: np.ndarray, origin_np=None
 ) -> bool:
-    """Host-side check: camera too far from grid center?"""
-    shape = np.asarray(state.tsdf.shape)
+    """Host-side check: camera too far from grid center? (The grid's shape
+    is the config's; a sharded volume passes its ShardedVolume.)"""
+    shape = np.asarray(config.grid_shape)
     origin = origin_np if origin_np is not None else np.asarray(_origin(state))
     center = (origin + shape / 2.0) * config.voxel_size
     return bool(np.any(np.abs(np.asarray(cam_pos) - center) > config.recenter_margin))
@@ -414,7 +433,7 @@ def recenter_shift(
     config: VolumeConfig, state: VolumeState, cam_pos: np.ndarray, origin_np=None
 ) -> np.ndarray:
     """Voxel shift that would center the grid on the camera."""
-    shape = np.asarray(state.tsdf.shape)
+    shape = np.asarray(config.grid_shape)
     origin = origin_np if origin_np is not None else np.asarray(_origin(state))
     target_origin = np.floor(
         np.asarray(cam_pos) / config.voxel_size - shape / 2.0

@@ -154,32 +154,60 @@ def _extract_device(
     int32 words, meta f32 [9] = n_tris, n_want, n_emitted, t_base, tick,
     qscale, base xyz). No host sync."""
     X, Y, Z = state.tsdf.shape
-    CX, CY, CZ = X - 1, Y - 1, Z - 1
-    dev = state.tsdf.device
-    off, tets, tet_table, edge_v = _tables(dev)
-    # already-meshed cells are excluded HERE too, so repeated rounds with the
-    # same mask are incremental
-    flat = (emit_mask & ~state.cell_meshed[:-1, :-1, :-1]).reshape(-1)
-    n_want = flat.sum(dtype=torch.int32)
-    cell_ids = compact_indices(flat, max_cells)
-    taken = cell_ids >= 0
+    cell_ids, n_want = select_cells(state, emit_mask, max_cells)
+    safe_ids, (ii, jj, kk) = cell_corners(cell_ids, Y - 1, Z - 1)
+    corners = corner_values(state, ii, jj, kk)
+    origin = [int(o) for o in state.origin.tolist()]
+    done, packed, meta = emit_cells(
+        corners, (ii, jj, kk), cell_ids >= 0, n_want, origin, (X, Y, Z), voxel_size, tri_capacity
+    )
+    return mark_meshed(state.cell_meshed, X - 1, safe_ids, done), packed, meta
+
+
+def select_cells(state: VolumeState, emit_mask: torch.Tensor, max_cells: int):
+    """(cell ids [max_cells] int32 in linear cell order, -1 padded; the count
+    of cells wanted). Already-meshed cells are excluded HERE too, so repeated
+    rounds with the same mask are incremental. `state`'s first
+    emit_mask.shape[0] x-planes hold the cells (a slab of a sharded grid
+    passes itself extended by its neighbour's first plane)."""
+    cx = emit_mask.shape[0]
+    flat = (emit_mask & ~state.cell_meshed[:cx, :-1, :-1]).reshape(-1)
+    return compact_indices(flat, max_cells), flat.sum(dtype=torch.int32)
+
+
+def cell_corners(cell_ids: torch.Tensor, CY: int, CZ: int):
+    """(clamped cell ids int64, the 8 corner voxel indices (ii, jj, kk) of
+    each cell, [C, 8] each)."""
+    off = _tables(cell_ids.device)[0]
     safe_ids = cell_ids.clamp_min(0).long()
     ci = safe_ids // (CY * CZ)
     cj = (safe_ids // CZ) % CY
     ck = safe_ids % CZ
+    return safe_ids, tuple(c[:, None] + off[None, :, a] for a, c in enumerate((ci, cj, ck)))
 
-    # 8 corner values per taken cell: [C, 8]
-    ii = ci[:, None] + off[None, :, 0]
-    jj = cj[:, None] + off[None, :, 1]
-    kk = ck[:, None] + off[None, :, 2]
-    sdf = state.tsdf[ii, jj, kk]
-    first = state.first_obs[ii, jj, kk]
-    last = state.last_obs[ii, jj, kk]
-    color = state.color[ii, jj, kk]  # [C,8,3]
-    label = state.label[ii, jj, kk]
-    origin = [float(o) for o in state.origin.tolist()]
+
+def corner_values(state: VolumeState, ii, jj, kk):
+    """(sdf, first_obs, last_obs, color, label) at the corners, [C, 8(, 3)]."""
+    return (
+        state.tsdf[ii, jj, kk],
+        state.first_obs[ii, jj, kk],
+        state.last_obs[ii, jj, kk],
+        state.color[ii, jj, kk],
+        state.label[ii, jj, kk],
+    )
+
+
+def emit_cells(corners, idx, taken, n_want, origin, shape, voxel_size: float, tri_capacity: int):
+    """The triangles of the taken cells: (done [C] bool, packed [cap, 12]
+    int32 words, meta f32 [9]). corners: corner_values at the cells' corner
+    indices idx = (ii, jj, kk) of the grid whose origin (host ints) and shape
+    are given (the whole grid, also for a sharded one)."""
+    sdf, first, last, color, label = corners
+    X, Y, Z = shape
+    dev = sdf.device
+    _, tets, tet_table, edge_v = _tables(dev)
     pos = torch.stack(
-        [(idx.to(torch.float32) + origin[a] + 0.5) * voxel_size for a, idx in enumerate((ii, jj, kk))],
+        [(c.to(torch.float32) + float(origin[a]) + 0.5) * voxel_size for a, c in enumerate(idx)],
         dim=-1,
     )  # [C,8,3]
 
@@ -230,17 +258,6 @@ def _extract_device(
     counts = valid_flat.sum(dim=1)
     fits = torch.cumsum(counts, 0) <= tri_capacity
     done = taken & fits
-    # every other cell has at most one slot: its emitted write lands as is (the
-    # rest go to a dropped extra cell). Cell (0, 0, 0) takes the write of the
-    # last slot aliasing it, in slot order: True if that slot emitted it,
-    # else its old value.
-    n_cells = CX * CY * CZ
-    meshed_flat = torch.cat([state.cell_meshed[:-1, :-1, :-1].reshape(-1), done.new_zeros(1)])
-    meshed_flat[torch.where(done & (safe_ids != 0), safe_ids, n_cells)] = True
-    last = torch.where(safe_ids == 0, torch.arange(C, device=dev), -1).max()
-    meshed_flat[0] |= done[last.clamp_min(0)] & (last >= 0)
-    cell_meshed = state.cell_meshed.clone()
-    cell_meshed[:-1, :-1, :-1] = meshed_flat[:n_cells].view(CX, CY, CZ)
     n_emitted = done.sum(dtype=torch.int32)
 
     kept = (valid_flat & done[:, None]).reshape(C * 12)
@@ -301,7 +318,29 @@ def _extract_device(
             *(torch.full((), v, dtype=torch.float32, device=dev) for v in (qscale, *base)),
         ]
     )
-    return cell_meshed, packed, meta
+    return done, packed, meta
+
+
+def mark_meshed(cell_meshed: torch.Tensor, cx: int, ids: torch.Tensor, done: torch.Tensor,
+                zero_alias: bool = True) -> torch.Tensor:
+    """cell_meshed with a round's writes to the cells held in its first cx
+    x-planes: slot k sets cell ids[k] when done[k]. Every other cell has at
+    most one slot: its emitted write lands as is (the rest go to a dropped
+    extra cell). With zero_alias, cell (0, 0, 0) takes the write of the last
+    slot aliasing it, in slot order: True if that slot emitted it, else its
+    old value (the padding slots alias it)."""
+    CY, CZ = cell_meshed.shape[1] - 1, cell_meshed.shape[2] - 1
+    n_cells = cx * CY * CZ
+    meshed_flat = torch.cat([cell_meshed[:cx, :-1, :-1].reshape(-1), done.new_zeros(1)])
+    if zero_alias:
+        meshed_flat[torch.where(done & (ids != 0), ids, n_cells)] = True
+        last = torch.where(ids == 0, torch.arange(ids.shape[0], device=ids.device), -1).max()
+        meshed_flat[0] |= done[last.clamp_min(0)] & (last >= 0)
+    else:
+        meshed_flat[torch.where(done, ids, n_cells)] = True
+    out = cell_meshed.clone()
+    out[:cx, :-1, :-1] = meshed_flat[:n_cells].view(cx, CY, CZ)
+    return out
 
 
 def default_tri_capacity(max_cells: int) -> int:

@@ -60,12 +60,12 @@ def gather_rows_cuda(img: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if channels == 2 and img.data_ptr() % 8:
         raise ValueError("gather_rows_cuda: the 8-byte row loads need an 8-byte aligned img")
     lib = native.load_library()
-    out = torch.empty((idx.shape[0], channels), dtype=torch.float32, device=img.device)
-    stream = torch.cuda.current_stream(img.device).cuda_stream
-    native.check(
-        lib.khr_gather_rows(img.data_ptr(), idx.data_ptr(), out.data_ptr(), rows, channels, idx.shape[0], stream),
-        "khr_gather_rows",
-    )
+    out = img.new_empty((idx.shape[0], channels))
+    with native.on_device(img.device) as stream:
+        native.check(
+            lib.khr_gather_rows(img.data_ptr(), idx.data_ptr(), out.data_ptr(), rows, channels, idx.shape[0], stream),
+            "khr_gather_rows",
+        )
     with _count_lock:
         launches += 1
     return out

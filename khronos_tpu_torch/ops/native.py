@@ -12,11 +12,15 @@ half-written file.
 
 Every C entry point takes device pointers, sizes and a `cudaStream_t` (all
 passed as c_void_p / c_longlong / c_int), launches on that stream, allocates
-nothing, does not synchronise, and returns `cudaGetLastError()`.
+nothing, does not synchronise, and returns `cudaGetLastError()`. It launches
+on the CURRENT device (and reads it, `cudaGetDevice`, for its occupancy
+queries), so a wrapper calls it inside `on_device(t.device)`: a mesh may put
+a slab on any card.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -26,6 +30,8 @@ import tempfile
 import threading
 import time
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("propagate.cu", "gather.cu")
@@ -115,3 +121,11 @@ def check(err: int, name: str) -> None:
     """Raise on a non-zero cudaError_t returned by a C entry point."""
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
+
+
+@contextlib.contextmanager
+def on_device(device: torch.device):
+    """Make `device` current for a C entry point's launch and give the handle
+    of its current stream; the previous current device comes back after."""
+    with torch.cuda.device(device):
+        yield torch.cuda.current_stream(device).cuda_stream

@@ -129,15 +129,15 @@ def launch(labels: torch.Tensor, growable: torch.Tensor, iterations: int):
     tiles = n_tiles(labels.shape)
     out = torch.empty_like(labels)
     tmp = torch.empty_like(labels)
-    ws = torch.empty(WS_HEADER + 2 * tiles, dtype=torch.int32, device=labels.device)
-    stream = torch.cuda.current_stream(labels.device).cuda_stream
-    native.check(
-        lib.khr_propagate(
-            labels.data_ptr(), growable.view(torch.uint8).data_ptr(), out.data_ptr(), tmp.data_ptr(),
-            ws.data_ptr(), X, Y, Z, tiles, max(int(iterations), 0), stream,
-        ),
-        "khr_propagate",
-    )
+    ws = labels.new_empty(WS_HEADER + 2 * tiles)
+    with native.on_device(labels.device) as stream:
+        native.check(
+            lib.khr_propagate(
+                labels.data_ptr(), growable.view(torch.uint8).data_ptr(), out.data_ptr(), tmp.data_ptr(),
+                ws.data_ptr(), X, Y, Z, tiles, max(int(iterations), 0), stream,
+            ),
+            "khr_propagate",
+        )
     with _count_lock:
         launches += 1
     return out, ws

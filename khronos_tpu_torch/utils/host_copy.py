@@ -4,9 +4,10 @@ The active window pulls small results every few frames or outputs: the bus
 (the packed tracker stats of a batch of frames with the pending mesh
 emission metas), a drain round's meta, and each emission round's used rows.
 Each pull is a non-blocking copy into pinned host memory on the current
-stream, followed by a CUDA event; the host polls the event and reads the copy
-only once it has landed, so the frame loop never waits for the device. CPU
-tensors need no copy and are ready at once.
+stream of the tensors' device, followed by a CUDA event on that stream; the
+host polls the event and reads the copy only once it has landed, so the
+frame loop never waits for the device. CPU tensors need no copy and are
+ready at once.
 
 A copy pickles (for checkpoints) as its landed host arrays: pickling waits
 for it, and it restores as a copy that is already ready.
@@ -28,7 +29,7 @@ class HostCopy:
             for h, t in zip(self.host, tensors):
                 h.copy_(t, non_blocking=True)
             self.event = torch.cuda.Event()
-            self.event.record()
+            self.event.record(torch.cuda.current_stream(tensors[0].device))  # the copies' stream
         else:
             self.host = list(tensors)
             self.event = None

@@ -15,7 +15,7 @@ Tolerances:
 - `Backend(solver="schur")`: the dense scenarios' bars (agents and deformed
   vertices within 1e-3 m, the same loop closures, solves, epochs, merges).
 - Schur against dense in the port: agents within 1e-4 m.
-The sharded assembly (`mesh=`) waits for the sharding slice and raises."""
+The sharded assembly (`mesh=`) is held in tests/test_torch_sharding.py."""
 
 import copy
 
@@ -177,10 +177,3 @@ def test_schur_matches_dense_in_port():
     np.testing.assert_allclose(sdsg.agent_positions(), ddsg.agent_positions(), rtol=0, atol=1e-4)
     np.testing.assert_array_equal(sdsg.mesh.faces, ddsg.mesh.faces)
 
-
-def test_sharded_assembly_waits_for_the_sharding_slice():
-    g, _ = GRAPHS["prior_only"]()
-    with pytest.raises(NotImplementedError, match="sharding"):
-        tdist.assemble_normal_equations(torch_graph(g), mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="sharding"):
-        tdist.optimize_distributed(torch_graph(g), mesh=object(), device="cpu")

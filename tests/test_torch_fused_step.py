@@ -136,6 +136,4 @@ def test_unported_options_raise():
     _, tc = _config("motion+objects", False)
     ls = torch_label_space(jsyn.default_label_space())
     with pytest.raises(NotImplementedError):
-        tfs.make_frame_step(tc.volumetric_map, torch_camera(cam), None, None, ls, mesh=object())
-    with pytest.raises(NotImplementedError):
         tfs.make_frame_step(tc.volumetric_map, torch_camera(cam), None, object(), ls)

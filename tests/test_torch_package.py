@@ -1,5 +1,5 @@
 """The port as a package: no JAX inside, the device rule, one config for both
-packages, and the options the port leaves out so far."""
+packages."""
 
 import dataclasses
 import pathlib
@@ -67,7 +67,7 @@ def test_imports_no_jax():
         "          'eval.viewer', 'eval.ground_truth', 'eval.__main__', 'active_window.instance_forwarding',\n"
         "          'active_window.motion_detection', 'active_window.object_detection',\n"
         "          'backend.registration', 'data.rosbag2', 'pipeline.checkpoint', 'backend.distributed',\n"
-        "          'eval.visualizers'):\n"
+        "          'eval.visualizers', 'parallel.sharding'):\n"
         "    assert 'khronos_tpu_torch.' + m in mods, m\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"
@@ -75,7 +75,8 @@ def test_imports_no_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|khronos_tpu)(\s|\.|$)", re.M)
-    sources = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_port_endurance.py"]
+    sources = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"] + [
+        ROOT / "scripts" / f"torch_port_{name}.py" for name in ("endurance", "sharding_cards")]
     offenders = [str(p) for p in sources if pattern.search(p.read_text())]
     assert not offenders
 
@@ -138,28 +139,21 @@ def test_one_config_builds_both_packages():
         build(ActiveWindowConfig, {"no_such_key": 1})
 
 
-def _window(override):
-    cfg = build(ActiveWindowConfig, {**BENCH, "volumetric_map": {"grid_shape": [16, 16, 8]}, **override})
+def test_sharded_window_needs_a_gpu_unless_told_cpu(monkeypatch):
+    """n_devices >= 1 follows the device rule: every shard lies on the
+    window's device, the current GPU unless the caller names one."""
+    from khronos_tpu_torch.parallel import sharding
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = build(ActiveWindowConfig, {**BENCH, "volumetric_map": {"grid_shape": [16, 16, 8]}, "n_devices": 2})
     cam = tsyn.SyntheticSequence(tsyn.office_scene(), tsyn.SyntheticSequenceConfig(height=8, width=8), device="cpu").camera
-    return ActiveWindow(cfg, cam, tsyn.default_label_space(), device="cpu")
-
-
-def _pipeline(override=None):
-    cfg = build(PipelineConfig, {"active_window": {"volumetric_map": {"grid_shape": [16, 16, 8]}}, "places": None,
-                                 **(override or {})})
-    cam = tsyn.SyntheticSequence(tsyn.office_scene(), tsyn.SyntheticSequenceConfig(height=8, width=8), device="cpu").camera
-    return KhronosPipeline(cfg, cam, device="cpu")
-
-
-UNPORTED_OPTIONS = {
-    "n_devices": lambda: _window({"n_devices": 1}),
-}
-
-
-@pytest.mark.parametrize("option", list(UNPORTED_OPTIONS))
-def test_unported_options_raise(option):
-    with pytest.raises(NotImplementedError):
-        UNPORTED_OPTIONS[option]()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ActiveWindow(cfg, cam, tsyn.default_label_space())
+    with pytest.raises(RuntimeError, match="devices=\\['cpu'\\]"):
+        sharding.make_mesh(2)
+    aw = ActiveWindow(cfg, cam, tsyn.default_label_space(), device="cpu")
+    assert aw.mesh.devices == (torch.device("cpu"),) * 2
+    assert [s.tsdf.device.type for s in aw.state.slabs] == ["cpu", "cpu"]
 
 
 def test_host_copy_on_cpu_is_ready():
