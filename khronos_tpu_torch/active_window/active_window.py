@@ -30,7 +30,8 @@ reference's backend-thread extraction); `_inflight_tracks` keeps their frames
 in the frame buffer until then. `finish_mapping` always extracts inline.
 
 With `n_devices >= 1` the voxel grid is split into slabs along x over a
-device mesh (`parallel/sharding.py`): the fused step runs on every slab with
+device mesh, one slab a visible card as the reference's `devices[:n]`
+(`parallel/sharding.py`): the fused step runs on every slab with
 halo exchange (cropping off), and the scroll and the mesh emission run per
 slab too; the modular path gathers the grid onto the first device for its
 stages. `n_devices=1` is the one-shard mesh.
@@ -102,7 +103,8 @@ class ActiveWindowConfig:
     object_extractor: Plugin = plugin_field("object_extractor", "MeshObjectExtractor")
     mesh_max_cells: int = 8192
     # device-mesh mode: the voxel grid split into n_devices slabs along x
-    # (parallel/sharding.py), one per shard. 0 = the plain single-device path
+    # (parallel/sharding.py), one per shard, one shard a visible card
+    # (round-robin when fewer are visible). 0 = the plain single-device path
     # (with frustum cropping); 1 = a one-shard mesh (the mesh code path
     # without fan-out). Needs grid_shape[0] % n_devices == 0; cropping is off
     # under sharding (a camera-dependent crop does not fit a static slab
@@ -150,8 +152,9 @@ class ActiveWindow:
     ):
         """device: where the volume and every frame's work live; CUDA unless
         the caller passes device="cpu" (raises when no GPU is visible). With
-        n_devices >= 1 every slab lies on that device ("cuda": the current
-        card)."""
+        n_devices >= 1 the slabs go one a card over the visible cards from
+        that one on (`sharding.mesh_for`; "cuda": the current card), and the
+        pixel side stays on the first."""
         self.device = resolve_device(device)
         self.config = config
         self.camera = camera
@@ -200,14 +203,24 @@ class ActiveWindow:
 
     def _build_grid(self) -> None:
         """The volume's layout: one grid, or with n_devices >= 1 that many
-        slabs over a mesh on self.device (`parallel/sharding.py`)."""
+        slabs over the mesh `sharding.mesh_for` gives self.device."""
         shape = self.config.volumetric_map.grid_shape
         self.mesh = None
         self.grid = fs.DenseGrid(shape)
         if self.config.n_devices >= 1:
-            self.mesh = sharding.make_mesh(self.config.n_devices, devices=[self.device])
+            self.mesh = sharding.mesh_for(self.config.n_devices, self.device)
             self.device = self.mesh.devices[0]
             self.grid = sharding.SlabGrid(self.mesh, shape)
+
+    @property
+    def devices(self):
+        """Every device the window's work runs on, the first holding the
+        pixel side: the mesh's cards, or the window's one device."""
+        return self.mesh.devices if self.mesh is not None else (self.device,)
+
+    def synchronize(self) -> None:
+        """Wait for the window's queued work on every card it uses."""
+        sharding.synchronize(self.devices)
 
     def __getstate__(self):
         """Checkpoint support: the built step is session-local (rebuilt on
@@ -222,8 +235,8 @@ class ActiveWindow:
 
     def __setstate__(self, state):
         self.__dict__.update(state)
-        # slabs come back on the restoring device: rebuild the mesh there
-        # and put each slab on its shard's device
+        # slabs come back on the restoring device: rebuild the mesh over
+        # the restoring host's cards and put each slab on its shard's card
         self._build_grid()
         self.state = self.grid.place(self.state)
         self._build_fused_step()
@@ -438,11 +451,12 @@ class ActiveWindow:
                 )
                 self._pending_tracks.extend(self.tracker.process(host, points_w.cpu().numpy()))
         with Timer("integration/all", frame.stamp_ns):
+            # the reference calls both outside jit: their eager rounding
             self.state = av.integrate_frame(
                 vol_cfg, self.camera, self.state, frame.depth, frame.color, frame.labels,
-                frame.dynamic_image > 0, frame.R_w_c, frame.t_w_c, t_now,
+                frame.dynamic_image > 0, frame.R_w_c, frame.t_w_c, t_now, eager=True,
             )
-            self.state = av.update_archival(vol_cfg, self.state, t_now)
+            self.state = av.update_archival(vol_cfg, self.state, t_now, eager=True)
 
     # ------------------------------------------------------------------
     def _track_frame(self, frame: FrameData, packed: torch.Tensor) -> None:

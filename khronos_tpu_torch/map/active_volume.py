@@ -29,7 +29,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from khronos_tpu_torch import fma32, resolve_device, sqrt32, u32_bits
+from khronos_tpu_torch import fma32, resolve_device, sqrt32, true_div, u32_bits
 from khronos_tpu_torch.config import check_ge, check_gt
 from khronos_tpu_torch.geometry.camera import Camera, voxel_floor, world_to_camera
 from khronos_tpu_torch.ops.dense import all_pool3, any_pool3
@@ -219,6 +219,7 @@ def integrate_frame(
     R_w_c,
     t_w_c,
     t_now,
+    eager: bool = False,
 ) -> VolumeState:
     """Projective TSDF + color + semantic + tracking-layer update for one frame.
 
@@ -227,33 +228,48 @@ def integrate_frame(
     TrackingIntegrator::updateBlocks (tracking_integrator.cpp:71-104).
 
     exclusion_mask: bool [H, W], True = pixel excluded (dynamic object).
-    R_w_c, t_w_c: host float32 pose; t_now: seconds (rounded to float32)."""
+    R_w_c, t_w_c: host float32 pose; t_now: seconds (rounded to float32).
+    eager: round as the reference's modular window path, which calls its
+    integrate_frame outside jit (`active_window.py:406`), one XLA operation
+    at a time: no product is fused into a sum, and the division by 255 is a
+    true division. By default the rounding of the reference's compiled
+    programs (the fused and the sharded step)."""
     packed_img = pack_pixels(depth, color, labels, exclusion_mask)
-    state, cand, upd = integrate_frame_local(config, camera, state, packed_img, R_w_c, t_w_c, t_now)
+    state, cand, upd = integrate_frame_local(config, camera, state, packed_img, R_w_c, t_w_c, t_now, eager)
     return integrate_frame_pools(state, all_pool3(cand), any_pool3(upd))
 
 
 def integrate_frame_local(
     config: VolumeConfig, camera: Camera, state: VolumeState, packed_img: torch.Tensor, R_w_c, t_w_c, t_now,
+    eager: bool = False,
 ):
     """integrate_frame up to its two 3x3x3 stencils: (state with every
     per-voxel update applied, the ever-free candidates `cand`, the updated
     voxels `upd`). `integrate_frame_pools` finishes it from all_pool3(cand)
     and any_pool3(upd); a slab of a sharded grid pools them over a one-plane
     halo from its neighbours (parallel/sharding.py). packed_img is
-    pack_pixels' [H*W, 2] payload image on the state's device."""
+    pack_pixels' [H*W, 2] payload image on the state's device; eager as in
+    integrate_frame."""
     t_now = float(np.float32(t_now))
     tau = float(np.float32(config.truncation_distance))
     shape = state.tsdf.shape
     # XLA CPU rounds the reference's projection so (probed on its compiled
     # integrate_frame, tests/test_torch_contraction.py): each center less t
     # in one rounding, fma(index + 0.5, voxel, -t); R^T by world_to_camera's
-    # rule; the pixel coordinates fma(x / z, f, c)
-    pc = world_to_camera(_center_components(state, None), R_w_c, t_w_c, scale=config.voxel_size)
+    # rule; the pixel coordinates fma(x / z, f, c). Eager, every operation
+    # rounds alone (the einsum keeps its rule: XLA CPU compiles it alike).
+    if eager:
+        pc = world_to_camera(_center_components(state, config.voxel_size), R_w_c, t_w_c)
+    else:
+        pc = world_to_camera(_center_components(state, None), R_w_c, t_w_c, scale=config.voxel_size)
     z = pc[2]
     safe_z = torch.where(z > 1e-6, z, 1e-6)
-    u = fma32(pc[0] / safe_z, camera.fx, camera.cx)
-    v = fma32(pc[1] / safe_z, camera.fy, camera.cy)
+    if eager:
+        u = pc[0] / safe_z * camera.fx + camera.cx
+        v = pc[1] / safe_z * camera.fy + camera.cy
+    else:
+        u = fma32(pc[0] / safe_z, camera.fx, camera.cx)
+        v = fma32(pc[1] / safe_z, camera.fy, camera.cy)
     in_img = (z > 1e-6) & camera.in_image(u, v)
     # clamp in float first: an out-of-range float->int cast is undefined (the
     # index only matters where in_img holds)
@@ -271,7 +287,10 @@ def integrate_frame_local(
 
     valid_pix = in_img & (d > camera.min_range) & (d <= camera.max_range)
     # along-ray signed distance (projective): scale z-difference by range/z
-    range_scale = sqrt32(fma32(z, z, fma32(pc[0], pc[0], pc[1] * pc[1]))) / safe_z
+    if eager:
+        range_scale = sqrt32(pc[0] * pc[0] + pc[1] * pc[1] + z * z) / safe_z
+    else:
+        range_scale = sqrt32(fma32(z, z, fma32(pc[0], pc[0], pc[1] * pc[1]))) / safe_z
     sdf = (d - z) * range_scale
 
     upd = valid_pix & (sdf > -tau) & (z <= camera.max_range) & ~pix_excluded
@@ -283,14 +302,17 @@ def integrate_frame_local(
     w = state.weight
     w_new = torch.where(upd, (w + 1.0).clamp_max(config.max_weight), w)
     sdf_c = sdf.clamp(-tau, tau)
-    tsdf_new = torch.where(upd, fma32(state.tsdf, w, sdf_c) / (w + 1.0), state.tsdf)
-
     near_surface = upd & (sdf.abs() <= tau)
     cw = w.clamp_max(20.0)[..., None]
-    # pix_color = rgb / 255 (XLA: times the float32 reciprocal), fused into the sum
-    color_new = torch.where(
-        near_surface[..., None], fma32(pix_rgb, INV_255, state.color * cw) / (cw + 1.0), state.color
-    )
+    if eager:
+        tsdf_sum = state.tsdf * w + sdf_c
+        color_sum = state.color * cw + true_div(pix_rgb, 255.0)
+    else:
+        tsdf_sum = fma32(state.tsdf, w, sdf_c)
+        # pix_color = rgb / 255 (XLA: times the float32 reciprocal), fused into the sum
+        color_sum = fma32(pix_rgb, INV_255, state.color * cw)
+    tsdf_new = torch.where(upd, tsdf_sum / (w + 1.0), state.tsdf)
+    color_new = torch.where(near_surface[..., None], color_sum / (cw + 1.0), state.color)
     # winner-take-all semantic fusion (counting argmax)
     has_label = near_surface & (pix_label >= 0)
     same = has_label & (pix_label == state.label)
@@ -403,11 +425,19 @@ def unslice_state(full: VolumeState, sub: VolumeState, start) -> VolumeState:
     return full
 
 
-def update_archival(config: VolumeConfig, state: VolumeState, t_now) -> VolumeState:
+def update_archival(config: VolumeConfig, state: VolumeState, t_now, eager: bool = False) -> VolumeState:
     """Flag voxels unobserved for temporal_window as archived
     (TrackingIntegrator::resetInactive equivalent; data stays until reuse).
-    Ever-free is cleared on archival (the reference removes inactive blocks)."""
-    horizon = float(np.float32(t_now) - np.float32(config.temporal_window))
+    Ever-free is cleared on archival (the reference removes inactive blocks).
+
+    The horizon t_now - temporal_window is a float32 difference, as in the
+    reference's compiled programs; eager (its modular window path, which
+    calls this outside jit with a Python t_now), the float64 difference
+    rounded once to float32."""
+    if eager:
+        horizon = float(np.float32(float(t_now) - config.temporal_window))
+    else:
+        horizon = float(np.float32(t_now) - np.float32(config.temporal_window))
     inactive = (state.weight > 0.0) & (state.last_obs < horizon)
     archived = state.archived | inactive
     return state._replace(archived=archived, ever_free=state.ever_free & ~archived)

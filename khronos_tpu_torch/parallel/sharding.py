@@ -6,9 +6,12 @@ with `NamedSharding`, and XLA partitions the step: elementwise work per
 shard, halo exchanges (collective-permutes) for the 3x3x3 stencils. Here the
 same layout is explicit:
 
-- a `Mesh` is an ordered tuple of torch devices, one per shard (a device may
-  hold several shards: N shards on one card are the counterpart of the
-  reference's virtual CPU devices, and the default);
+- a `Mesh` is an ordered tuple of torch devices, one per shard, as the
+  reference's `make_mesh(n)` takes `jax.devices()[:n]`: the visible cards
+  in order, from the window's card on (a device may hold several shards:
+  with fewer cards than shards they go round-robin, where the reference
+  shrinks the mesh; N shards on one card are the counterpart of the
+  reference's virtual CPU devices);
 - a `ShardedVolume` holds the grid as N slabs of `X / N` x-planes, slab i on
   shard i's device, each a `VolumeState` whose origin is the global origin
   plus (i * X / N, 0, 0); the global origin is replicated;
@@ -42,6 +45,7 @@ from khronos_tpu_torch.map import active_volume as av
 from khronos_tpu_torch.map import meshing
 from khronos_tpu_torch.ops import clusters as cl
 from khronos_tpu_torch.ops.dense import all_pool3, any_pool3
+from khronos_tpu_torch.utils.logging import clog
 
 
 class Mesh(NamedTuple):
@@ -63,20 +67,27 @@ def _concrete(device) -> torch.device:
     return d
 
 
+def visible_cards(first="cuda") -> List[torch.device]:
+    """Every visible CUDA card once, in order from `first` (default: the
+    current card) on, wrapping around: the reference's `jax.devices()` as
+    the window's card sees them (card 0 first when it is current)."""
+    k, n = _concrete(first).index, torch.cuda.device_count()
+    return [torch.device("cuda", (k + j) % n) for j in range(n)]
+
+
 def make_mesh(n_devices: Optional[int] = None, devices=None) -> Mesh:
     """A mesh of n_devices shards (default: one per device) over `devices`,
-    round-robin when there are fewer devices than shards. The default is the
-    current CUDA device alone, so every slab lies on one card. A list of
-    several cards spreads the slabs over them; that layout has been checked
-    for results on four cards (scripts/torch_port_sharding_cards.py) but not
-    run through the window. The reference's `devices[:n]` instead shrinks the
-    mesh to the devices that are visible."""
+    round-robin when there are fewer devices than shards. The default is
+    `visible_cards()`: with card 0 current and n or more cards visible,
+    cards 0..n-1, the reference's `jax.devices()[:n]`. Where the reference
+    shrinks the mesh to the devices that are visible, this one keeps n
+    shards and puts several on a card."""
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "make_mesh: no GPU is visible; pass devices=['cpu'] to shard on the CPU"
             )
-        devices = ["cuda"]
+        devices = visible_cards()
     devices = [_concrete(d) for d in devices]
     if not devices:
         raise ValueError("make_mesh: no devices")
@@ -84,6 +95,34 @@ def make_mesh(n_devices: Optional[int] = None, devices=None) -> Mesh:
     if n < 1:
         raise ValueError(f"make_mesh: n_devices must be >= 1, got {n}")
     return Mesh(tuple(devices[i % len(devices)] for i in range(n)))
+
+
+_logged_layouts = set()
+
+
+def mesh_for(n_devices: int, device) -> Mesh:
+    """The window's mesh for `n_devices` slabs on `device`: on a CUDA device
+    one slab a card over `visible_cards(device)`, round-robin when fewer
+    cards are visible (the layout is logged once); on the CPU every slab on
+    the CPU."""
+    device = _concrete(device)
+    if device.type != "cuda":
+        return make_mesh(n_devices, devices=[device])
+    cards = visible_cards(device)
+    mesh = make_mesh(n_devices, devices=cards)
+    if len(cards) < mesh.size and mesh.devices not in _logged_layouts:
+        _logged_layouts.add(mesh.devices)
+        clog(1, f"{mesh.size} slabs on {len(cards)} visible card(s), round-robin: "
+                + ", ".join(f"slab {i} on {d}" for i, d in enumerate(mesh.devices)))
+    return mesh
+
+
+def synchronize(devices) -> None:
+    """Wait for the work queued on each CUDA device of `devices` (a bare
+    torch.cuda.synchronize() waits for the current card only)."""
+    for d in dict.fromkeys(torch.device(d) for d in devices):
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
 
 
 class ShardedVolume(NamedTuple):

@@ -12,12 +12,13 @@ overrides apply last. The same YAML builds both packages.
 Runs on CUDA unless `--device cpu`: the pipeline (places layer included),
 then the 4D viewer export (`run.export_viewer`) and, for synthetic data, the
 evaluation against the scene's ground truth (`run.evaluate`, which also
-writes gt.npz for `python -m khronos_tpu_torch.eval`). Only the synthetic
-dataset is ported; the others raise NotImplementedError.
+writes gt.npz for `python -m khronos_tpu_torch.eval`). Every dataset kind of
+the reference is ported (`data/datasets.py::make_dataset`): synthetic,
+directory, tum and rosbag2; only a synthetic run is evaluated.
 
 Top-level YAML keys:
   pipeline: PipelineConfig tree
-  dataset:  {kind: synthetic, ...adapter kwargs}
+  dataset:  {kind: synthetic | directory | tum | rosbag2, ...adapter kwargs}
   run:      {output_dir, max_frames, evaluate, export_viewer, save_every_n_frames}
 """
 

@@ -5,11 +5,12 @@ Separates the pipeline from the renderer when the port's map differs from
 the JAX package's on a synthetic config: both pipelines then read the same
 frames, through `dataset.kind=directory`.
 
-    # 1. render the config's frames with the JAX package into DirectoryDataset's
+    # 1. render the config's frames with the JAX package (or, with
+    #    --renderer torch, with the port on the CPU) into DirectoryDataset's
     #    layout, and write a config that reads them (everything else as in the
     #    original config)
     python scripts/torch_port_directory.py export --config configs/apartment_synthetic.yaml \
-        --out /tmp/apartment_frames
+        --out /tmp/apartment_frames [--renderer torch]
     # 2. run both packages on them (the port with --device cpu, or on the card);
     #    the reference in its earliest host-pull schedule, which the port keeps
     python scripts/torch_port_directory.py run-reference --config /tmp/apartment_frames/config.yaml \
@@ -23,7 +24,8 @@ frames, through `dataset.kind=directory`.
     python scripts/torch_port_directory.py renderer --config configs/apartment_synthetic.yaml 10 85
 
 Frames are stored as rendered (float32 depth in m, float32 colour, int32
-labels); each pose is written as a quaternion, which both packages turn back
+labels, and for an open-set config int32 instances and float32 features);
+each pose is written as a quaternion, which both packages turn back
 into a float32 rotation with their own quat_to_rot.
 """
 
@@ -58,15 +60,20 @@ def rot_to_quat_wxyz(R: np.ndarray) -> np.ndarray:
     return q
 
 
-def export(config_path: str, out: str) -> None:
-    from khronos_tpu.data.datasets import SyntheticDataset
-
+def export(config_path: str, out: str, renderer: str = "jax") -> None:
     with open(config_path) as fh:
         config = yaml.safe_load(fh)
     spec = dict(config["dataset"])
     if spec.pop("kind", "synthetic") != "synthetic":
         raise SystemExit("export needs a synthetic config")
-    ds = SyntheticDataset(**spec)
+    if renderer == "jax":
+        from khronos_tpu.data.datasets import SyntheticDataset
+
+        ds = SyntheticDataset(**spec)
+    else:
+        from khronos_tpu_torch.data.datasets import SyntheticDataset
+
+        ds = SyntheticDataset(device="cpu", **spec)
     cam = ds.camera
     os.makedirs(os.path.join(out, "frames"), exist_ok=True)
     with open(os.path.join(out, "intrinsics.json"), "w") as fh:
@@ -75,8 +82,13 @@ def export(config_path: str, out: str) -> None:
     rows = []
     for frame, _ in ds:
         stamp = int(frame.stamp_ns)
-        np.savez(os.path.join(out, "frames", f"{stamp}.npz"), depth=np.asarray(frame.depth, np.float32),
-                 color=np.asarray(frame.color, np.float32), labels=np.asarray(frame.labels, np.int32))
+        arrays = {"depth": np.asarray(frame.depth, np.float32), "color": np.asarray(frame.color, np.float32),
+                  "labels": np.asarray(frame.labels, np.int32)}
+        if frame.instances is not None:
+            arrays["instances"] = np.asarray(frame.instances, np.int32)
+        if frame.label_features is not None:
+            arrays["features"] = np.asarray(frame.label_features, np.float32)
+        np.savez(os.path.join(out, "frames", f"{stamp}.npz"), **arrays)
         q = rot_to_quat_wxyz(frame.R_w_c)
         t = np.asarray(frame.t_w_c, np.float64)
         rows.append(",".join([str(stamp)] + [repr(float(x)) for x in (*t, *q)]))
@@ -86,7 +98,8 @@ def export(config_path: str, out: str) -> None:
     config.setdefault("run", {})["evaluate"] = False
     with open(os.path.join(out, "config.yaml"), "w") as fh:
         yaml.safe_dump(config, fh)
-    print(f"{len(rows)} frames of {cam.height}x{cam.width} -> {out}; config {os.path.join(out, 'config.yaml')}")
+    print(f"{len(rows)} frames of {cam.height}x{cam.width} ({renderer} renderer) -> {out}; "
+          f"config {os.path.join(out, 'config.yaml')}")
 
 
 def run_reference(argv) -> str:
@@ -176,6 +189,8 @@ def main(argv=None) -> int:
     ex = sub.add_parser("export", help="render a synthetic config's frames into DirectoryDataset's layout")
     ex.add_argument("--config", required=True)
     ex.add_argument("--out", required=True)
+    ex.add_argument("--renderer", choices=("jax", "torch"), default="jax",
+                    help="render with the JAX package (default) or with the port on the CPU")
     sub.add_parser("run-reference", help="python -m khronos_tpu.run's arguments, in its earliest schedule")
     rnd = sub.add_parser("renderer", help="the two renderers on a synthetic config's frames")
     rnd.add_argument("--config", required=True)
@@ -189,7 +204,7 @@ def main(argv=None) -> int:
         return 0
     args = ap.parse_args(argv)
     if args.cmd == "export":
-        export(args.config, args.out)
+        export(args.config, args.out, args.renderer)
         return 0
     if args.cmd == "renderer":
         renderer(args.config, args.frames)

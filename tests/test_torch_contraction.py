@@ -28,7 +28,10 @@ state after `integrate_frame` and after the fused frame step, the fused
 step's cluster extremes and point samples (from its vertex image, whose
 pixel rays multiply by the reciprocal of f inside the program), and the
 object reconstruction, all bit for bit on office and apartment frames
-(tolerance 0)."""
+(tolerance 0). The reference's modular window path calls its integrate_frame
+outside jit, one XLA operation at a time, where nothing is fused: the port's
+`integrate_frame(eager=True)`, and the modular window's volume, bit for bit
+against it too."""
 
 import functools
 
@@ -222,6 +225,77 @@ def test_integrate_frame_bit_exact_inside_reference_program(scene_name, hw):
                                  torch.from_numpy(f["labels"]), torch.from_numpy(excl), f["R_w_c"], f["t_w_c"], f["t"])
     _assert_state_bits(js, ts)
     assert float(np.asarray(js.weight).sum()) > 0
+
+
+@pytest.mark.parametrize("scene_name,hw", [("office", (48, 64)), ("apartment", (60, 80))])
+def test_integrate_frame_bit_exact_against_reference_eager_call(scene_name, hw):
+    """The reference's integrate_frame called eagerly (as its modular window
+    path calls it) and the port's with eager=True, frame after frame from the
+    same start: every state field bit for bit."""
+    cam, frames = _sequence(scene_name, 6, *hw)
+    vc = jbuild(JConfig, {"volumetric_map": {"grid_shape": GRID, "voxel_size": 0.1}}).volumetric_map
+    js, ts = _start_state(vc, frames[0])
+    tcam = torch_camera(cam)
+    for f in frames:
+        excl = np.zeros(hw, bool)
+        js = jav.integrate_frame(vc, cam, js, jnp.asarray(f["depth"]), jnp.asarray(f["color"]),
+                                 jnp.asarray(f["labels"]), jnp.asarray(excl), f["R_w_c"], f["t_w_c"],
+                                 jnp.float32(f["t"]))
+        ts = tav.integrate_frame(vc, tcam, ts, torch.from_numpy(f["depth"]), torch.from_numpy(f["color"]),
+                                 torch.from_numpy(f["labels"]), torch.from_numpy(excl), f["R_w_c"], f["t_w_c"],
+                                 f["t"], eager=True)
+    _assert_state_bits(js, ts)
+    assert float(np.asarray(js.weight).sum()) > 0
+
+
+def test_update_archival_horizon_rounds_as_the_reference():
+    """update_archival's horizon t_now - temporal_window: the reference's
+    compiled programs (a float32 t_now) take the float32 difference, its
+    modular path (outside jit, a Python t_now) the float64 difference
+    rounded once. Voxels last observed at every frame stamp of 5 frames/s,
+    archived at t = 3.0 .. 4.6 s: the port's default and eager=True give
+    each reference's flags, bit for bit, and the two references differ."""
+    vc = jbuild(JConfig, {"volumetric_map": {"grid_shape": [32, 8, 8], "voxel_size": 0.1}}).volumetric_map
+    stamps = np.asarray([np.float32(k * 200_000_000 * 1e-9) for k in range(32)], np.float32)
+    last_obs = np.broadcast_to(stamps[:, None, None], (32, 8, 8)).copy()
+    js = jav.create(vc)._replace(weight=jnp.ones((32, 8, 8), jnp.float32), last_obs=jnp.asarray(last_obs))
+    ts = tav.state_from_numpy([np.asarray(a) for a in js], device="cpu")
+    jitted = jax.jit(functools.partial(jav.update_archival, vc))
+    differ = 0
+    for k in range(15, 24):
+        t_now = k * 200_000_000 * 1e-9  # as the window computes it from stamps
+        want_eager = np.asarray(jav.update_archival(vc, js, t_now).archived)
+        want_jit = np.asarray(jitted(js, jnp.float32(t_now)).archived)
+        np.testing.assert_array_equal(tav.update_archival(vc, ts, t_now, eager=True).archived.numpy(), want_eager)
+        np.testing.assert_array_equal(tav.update_archival(vc, ts, t_now).archived.numpy(), want_jit)
+        differ += int((want_eager != want_jit).sum())
+    assert differ > 0
+
+
+def test_modular_window_volume_bit_exact():
+    """ActiveWindow(fused=False) in both packages on the same office frames:
+    the volume after every frame bit for bit (the modular path's
+    integration rounds as the reference's eager call)."""
+    from khronos_tpu.active_window.active_window import ActiveWindow as JWindow
+    from khronos_tpu.active_window.frame_data import FrameData as JFrame
+    from khronos_tpu_torch.active_window.active_window import ActiveWindow as TWindow
+    from khronos_tpu_torch.active_window.frame_data import FrameData as TFrame
+
+    cam, frames = _sequence("office", 6, 48, 64)
+    cfg = {"fused": False, "volumetric_map": {"grid_shape": GRID, "voxel_size": 0.1},
+           "motion_detector": {"type": "FreeSpaceMotionDetector", "min_cluster_size": 20},
+           "object_detector": {"type": "ConnectedSemantics", "min_cluster_size": 5}}
+    ls = jsyn.default_label_space()
+    jaw = JWindow(jbuild(JConfig, cfg), cam, ls)
+    taw = TWindow(tbuild(TConfig, cfg), torch_camera(cam), torch_label_space(ls), device="cpu")
+    for f in frames:
+        jaw.spin_once(JFrame(stamp_ns=f["stamp_ns"], depth=jnp.asarray(f["depth"]), color=jnp.asarray(f["color"]),
+                             labels=jnp.asarray(f["labels"]), R_w_c=f["R_w_c"], t_w_c=f["t_w_c"]))
+        taw.spin_once(TFrame(stamp_ns=f["stamp_ns"], depth=torch.from_numpy(f["depth"]),
+                             color=torch.from_numpy(f["color"]), labels=torch.from_numpy(f["labels"]),
+                             R_w_c=f["R_w_c"], t_w_c=f["t_w_c"]))
+        _assert_state_bits(jaw.state, taw.state)
+    assert taw._fused_step is None and float(taw.state.weight.sum()) > 0
 
 
 @pytest.mark.parametrize("scene_name,hw,stride", [("office", (48, 64), 2), ("office", (48, 64), 1),

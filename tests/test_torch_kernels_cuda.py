@@ -265,3 +265,32 @@ def test_propagate_fixpoint_wrapper(cuda, case):
     assert rounds == fixpoint_rounds(plain_rounds, grow, lab.numel())
     if case == "snake":
         assert plain_rounds > 300
+
+
+@pytest.fixture
+def two_cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: a sharded window's pulls span cards")
+    return torch.device("cuda", 0), torch.device("cuda", 1)
+
+
+def test_host_copy_over_two_cards_is_ready_once_both_land(two_cards):
+    """A HostCopy of tensors on two cards (a sharded window's pull) is ready
+    only once each card's copy has landed: card 1's copy queues behind a
+    sleep of about a second on its stream, card 0's does not."""
+    from khronos_tpu_torch.utils.host_copy import HostCopy
+
+    first, second = two_cards
+    a = torch.arange(4096, dtype=torch.int32, device=first)
+    b = torch.arange(4096, dtype=torch.float32, device=second) * 0.5
+    torch.cuda.synchronize(first)
+    torch.cuda.synchronize(second)
+    with torch.cuda.device(second):
+        torch.cuda._sleep(2_000_000_000)
+    copy = HostCopy(a, b)
+    assert len(copy.events) == 2
+    torch.cuda.synchronize(first)
+    assert not copy.ready()  # card 0's copy has landed, card 1's has not
+    torch.cuda.synchronize(second)
+    assert copy.ready()
+    assert np.array_equal(copy.numpy(0), a.cpu().numpy()) and np.array_equal(copy.numpy(1), b.cpu().numpy())

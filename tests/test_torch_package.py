@@ -75,7 +75,7 @@ def test_imports_no_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|khronos_tpu)(\s|\.|$)", re.M)
-    sources = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"] + [
+    sources = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "bench_torch.py"] + [
         ROOT / "scripts" / f"torch_port_{name}.py" for name in ("endurance", "sharding_cards")]
     offenders = [str(p) for p in sources if pattern.search(p.read_text())]
     assert not offenders
@@ -140,8 +140,9 @@ def test_one_config_builds_both_packages():
 
 
 def test_sharded_window_needs_a_gpu_unless_told_cpu(monkeypatch):
-    """n_devices >= 1 follows the device rule: every shard lies on the
-    window's device, the current GPU unless the caller names one."""
+    """n_devices >= 1 follows the device rule: without a GPU the window and
+    the default mesh raise unless told the CPU, and on the CPU every shard
+    lies on the CPU."""
     from khronos_tpu_torch.parallel import sharding
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

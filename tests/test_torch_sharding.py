@@ -2,8 +2,9 @@
 and the pipeline's mesh mode (`n_devices`), and the sharded factor assembly.
 
 The JAX side runs on conftest's 8 virtual CPU devices in this process; the
-port's shards all lie on the CPU (a mesh of N shards on one device). The
-file starts no process and opens no port. Tolerances, the reference's own
+port's shards all lie on the CPU (a mesh of N shards on one device), save
+the window's card order, checked on 4 stubbed cards with torch.device
+objects only. The file starts no process and opens no port. Tolerances, the reference's own
 (tests/test_tools.py):
 - labels, ids, id images, ray evidence and integer stats bit for bit;
 - the volume as tests/torch_parity.assert_states_match (floats within 1e-5);
@@ -121,15 +122,64 @@ def test_indivisible_grid_raises(entry):
 
 
 def test_default_mesh_keeps_every_shard_on_the_current_card(monkeypatch):
-    """Without `devices` (and for a bare "cuda") the shards share the current
-    card; a list of cards takes them round-robin."""
+    """With one card visible, the default mesh (and a bare "cuda") keeps
+    every shard on it; a list of cards takes them round-robin. With several
+    cards visible the default takes one a card, from the current one on."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    monkeypatch.setattr(torch.cuda, "current_device", lambda: 3)
-    card = torch.device("cuda", 3)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    card = torch.device("cuda", 0)
     assert tsh.make_mesh(4).devices == (card,) * 4
     assert tsh.make_mesh(2, devices=["cuda"]).devices == (card, card)
     assert tsh.make_mesh(3, devices=["cuda:0", "cuda:1"]).devices == tuple(
         torch.device("cuda", k) for k in (0, 1, 0))
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 3)
+    assert tsh.make_mesh(4).devices == tuple(torch.device("cuda", k) for k in (3, 0, 1, 2))
+    assert tsh.make_mesh().size == 4
+
+
+def _four_cards(monkeypatch):
+    """Four visible "cards", card 0 current: torch.device objects only."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+
+
+@pytest.mark.parametrize("n", [1, 2, 4, 8])
+def test_window_mesh_follows_the_reference_device_order(monkeypatch, n):
+    """ActiveWindow(n_devices=n) on "cuda" with 4 cards visible puts slab i
+    on the reference's make_mesh(n) device i (conftest's 8 virtual CPU
+    devices): cards 0..n-1, and round-robin beyond 4. The window's pixel
+    side stays on slab 0's card. Builds no CUDA tensor: the slab grid is
+    stubbed."""
+    _four_cards(monkeypatch)
+    want = [d.id for d in jsh.make_mesh(n).devices.flat]
+    assert want == list(range(n))
+    monkeypatch.setattr(tsh, "SlabGrid", lambda mesh, shape: ("slabs", mesh, tuple(shape)))
+    aw = TWindow.__new__(TWindow)
+    aw.config = tbuild(TConfig, {**AW_CONFIG, "n_devices": n})
+    aw.device = torch.device("cuda")
+    aw._build_grid()
+    assert [d.index for d in aw.mesh.devices] == [i % 4 for i in want]
+    assert all(d.type == "cuda" for d in aw.mesh.devices)
+    assert aw.grid == ("slabs", aw.mesh, tuple(AW_CONFIG["volumetric_map"]["grid_shape"]))
+    assert aw.device == torch.device("cuda", 0) and aw.devices == aw.mesh.devices
+    assert tsh.mesh_for(n, "cpu").devices == (torch.device("cpu"),) * n
+
+
+def test_window_mesh_starts_at_the_window_card_and_logs_round_robin_once(monkeypatch):
+    """A window on cuda:2 takes cards 2, 3, 0, 1; more slabs than cards
+    log their layout once."""
+    _four_cards(monkeypatch)
+    logged = []
+    monkeypatch.setattr(tsh, "clog", lambda level, msg: logged.append(msg))
+    monkeypatch.setattr(tsh, "_logged_layouts", set())
+    assert [d.index for d in tsh.mesh_for(4, "cuda:2").devices] == [2, 3, 0, 1]
+    assert not logged
+    for _ in range(3):
+        assert [d.index for d in tsh.mesh_for(6, "cuda").devices] == [0, 1, 2, 3, 0, 1]
+    assert len(logged) == 1 and "slab 4 on cuda:0" in logged[0]
 
 
 class _OnCard(torch.Tensor):
