@@ -144,16 +144,32 @@ Phases, in order; any failure raises and the run exits non-zero:
    A and B on the recorded slab inputs, bit for bit; the office config as
    pipeline_path runs it with pipeline.active_window.n_devices=2 through
    run.main, its quality held to REFERENCE_QUALITY;
-12. bench_path: bench_torch.py's two modes (`--aw-only` and the full
+12. multiprocess_path: the window over several processes
+   (parallel/distributed.py, parallel/workers.py). Right after the build,
+   before this process's first CUDA operation, it prints the card's compute
+   mode (`nvidia-smi --query-gpu=compute_mode,name,power.limit`; it must be
+   Default) and starts 2 fresh interpreters as the gloo ranks of one group
+   (a file rendezvous, outputs to files), both on this card: each runs the
+   window at the main path's widths with n_devices=2 (one slab a rank),
+   WARMUP + FRAMES + CAPTURED frames with its own launch counts set to 0
+   just before the timed frames and read just after, kernel inputs
+   recorded, then tests/multihost_pipeline_worker.py's run_pipeline(4) over
+   2 ranks x 2 slabs. After sharding_path this process runs both in one
+   process on the same frames: every frame's packed stats and id images, the
+   triangles, the finished tracks, each rank's slab and the pipeline's
+   summary bit for bit; A and B once a timed frame in each rank; A and B on
+   rank 1's recorded slab inputs bit for bit and timed; ms a frame of the
+   ranks beside the one-process window;
+13. bench_path: bench_torch.py's two modes (`--aw-only` and the full
    pipeline) in this process at their default widths with `--repeats 1`:
    both finish and give bench.py's JSON line (logged); in --aw-only A and B
    launch once a timed frame and the frames/s lies within 2x of the main
    path's; the full pipeline's
    launches (A once a frame plus once a room segmentation, B once a frame),
    and A and B on its recorded inputs, bit for bit and timed;
-13. sweep: kernel A built and timed at other rounds per step and tile shapes
+14. sweep: kernel A built and timed at other rounds per step and tile shapes
    (phase_sweep), the measurements behind the ones csrc/propagate.cu uses;
-14. prints the kernels line as JSON, then `{"ok": true, "device": ...}` last.
+15. prints the kernels line as JSON, then `{"ok": true, "device": ...}` last.
 
 Every timing of a window synchronises every card the window uses
 (`ActiveWindow.synchronize`).
@@ -248,15 +264,17 @@ def bench_config():
     }
 
 
+def sequence_settings(n_frames, height, width):
+    """The main path's sequence: n_frames of the office at 10 frames/s, as
+    SyntheticSequenceConfig's fields (JSON, for the ranks too)."""
+    return {"duration": n_frames / 10.0 + 1.0, "fps": 10.0, "height": height, "width": width,
+            "fx": width * 0.625, "fy": width * 0.625, "cx": width / 2, "cy": height / 2}
+
+
 def make_sequence(syn, n_frames, height, width, device):
-    duration = n_frames / 10.0 + 1.0
+    settings = sequence_settings(n_frames, height, width)
     return syn.SyntheticSequence(
-        syn.office_scene(duration=duration),
-        syn.SyntheticSequenceConfig(
-            duration=duration, fps=10.0, height=height, width=width,
-            fx=width * 0.625, fy=width * 0.625, cx=width / 2, cy=height / 2,
-        ),
-        device=device,
+        syn.office_scene(duration=settings["duration"]), syn.SyntheticSequenceConfig(**settings), device=device,
     )
 
 
@@ -2615,7 +2633,7 @@ def phase_jackal_path(card_name, device="cuda", overrides=()):
 ENDURANCE_FRAMES = 600  # scripts/torch_port_endurance.py's operating point, cut from the reference's 3,000
 ASYNC_SECONDS = 12.0  # the office config cut from 30 s to 12 s of robot time (120 frames)
 ASYNC_OVERRIDES = ("dataset.drift_rate=0.1", f"dataset.duration={ASYNC_SECONDS}")
-ASYNC_TURNS = 3  # timed runs of each mode, in turns
+ASYNC_TURNS = 2  # timed runs of each mode, in turns (inline, async, async, inline)
 ASYNC_MESH_ATOL = 1e-5  # tests/test_runtime.py's bar: sorted mesh vertices, async vs inline
 
 
@@ -3085,6 +3103,164 @@ def phase_sharding_path(card_name, device="cuda", size=(480, 640), grid=(160, 16
     return result
 
 
+# ---- multiprocess_path: the window over two ranks (processes) on this card ----
+
+MULTIPROCESS_RANKS = 2  # gloo ranks, both on this card (NCCL takes one rank a card)
+MULTIPROCESS_SLABS = 2  # the window's n_devices: one slab a rank
+MULTIPROCESS_PIPELINE_SLABS = 4  # run_pipeline(4): the reference worker's 2 processes x 2 devices
+MULTIPROCESS_TIMEOUT_S = 600.0
+
+
+def compute_mode() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode,name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def multiprocess_window(size, grid):
+    """workers.run_window's arguments for the main path's window (bench_config
+    and the main path's sequence) at `size` and `grid`, one slab a rank."""
+    return {"config": {**bench_config(), "volumetric_map": {"grid_shape": list(grid), "voxel_size": 0.1}},
+            "sequence": sequence_settings(WARMUP + FRAMES + CAPTURED, *size), "n_devices": MULTIPROCESS_SLABS,
+            "warmup": WARMUP, "frames": FRAMES, "capture": CAPTURED}
+
+
+def multiprocess_calls(size, grid, record_dir):
+    """What each rank of multiprocess_path runs (parallel/workers.py): the
+    window at the main path's widths with one slab a rank, its kernel inputs
+    recorded; then run_pipeline(4)."""
+    window = {**multiprocess_window(size, grid), "record": str(record_dir)}
+    return [["run_window", window], ["run_pipeline", {"n_devices": MULTIPROCESS_PIPELINE_SLABS, "digests": True}]]
+
+
+def start_multiprocess_ranks(card_name, device="cuda", size=(480, 640), grid=(160, 160, 48)):
+    """multiprocess_path's ranks, started before this process's first CUDA
+    operation so that it holds no context on the card while they run: the
+    card's compute mode (two processes on one card need "Default"), then
+    MULTIPROCESS_RANKS fresh interpreters in one gloo group
+    (workers.launch, a file rendezvous, outputs to files), both on this
+    card. Returns their results, compared in phase_multiprocess_path."""
+    from khronos_tpu_torch.parallel import workers
+
+    mode = compute_mode() if device == "cuda" else "Default (CPU rehearsal)"
+    log(f"multiprocess_path: compute_mode, name, power.limit: {mode}; "
+        f"{torch.cuda.device_count() if device == 'cuda' else 0} visible card(s)")
+    if not mode.startswith("Default"):
+        raise RuntimeError(f"multiprocess_path: the card's compute mode is not Default ({mode}): a second process "
+                           f"on it gets no context")
+    out_dir = ROOT / "build" / "multiprocess_path"
+    ts = time.perf_counter()
+    results = workers.launch(MULTIPROCESS_RANKS, "gloo", "several",
+                             {"calls": multiprocess_calls(size, grid, out_dir)}, out_dir,
+                             timeout_s=MULTIPROCESS_TIMEOUT_S, device=device)
+    seconds = time.perf_counter() - ts
+    log(f"multiprocess_path: {MULTIPROCESS_RANKS} gloo ranks ran in {seconds:.1f} s (start included): ms a frame "
+        + ", ".join(f"rank {r} {res[0]['ms_per_frame']:.2f}" for r, res in enumerate(results)))
+    return {"results": results, "seconds": seconds, "compute_mode": mode, "out_dir": out_dir, "device": device,
+            "size": size, "grid": grid}
+
+
+def slab_kernel_rows(tag, lab, grow, iterations, img, idx, launches):
+    """A and B on one slab's recorded inputs: bit for bit against their plain
+    versions, timed beside them (and B beside `img[idx]`), with the bound:
+    the kernels line's rows for a path."""
+    from khronos_tpu_torch.ops import gather, propagate
+
+    a = time_propagate(propagate, f"{tag}, a slab extended by {iterations} planes", lab, grow, iterations)
+    b_err = check_gather(gather, img, idx, tag)
+    p_ms, k_ms = in_turns(lambda: gather.gather_rows_plain(img, idx), lambda: gather.gather_rows_cuda(img, idx))
+    lib_ms = time_ms(lambda: img[idx])
+    bytes_b = img.nbytes + idx.nbytes + idx.numel() * img.shape[1] * 4
+    rows = [
+        {"name": f"propagate_labels_3d ({tag})", "route": "cuda", "source": "khronos_tpu_torch/csrc/propagate.cu",
+         "replaces": "khronos_tpu/ops/pallas/propagate.py:49", "launches": launches["propagate"],
+         "launches_per_frame": launches["propagate"] / FRAMES, "match": True, "max_abs_err": a["max_abs_err"],
+         "ms": a["us"] * 1e-3, "plain_ms": a["plain_us"] * 1e-3, "bound_ms": a["bound_us"] * 1e-3,
+         "bound_us": a["bound_us"], "bound_by": a["bound_by"], "library_ms": None, "input": a["input"],
+         "shape": list(lab.shape), "iterations": iterations, "rounds": a["rounds"],
+         "active_share": a["active_share"], "growable_share": a["growable_share"]},
+        {"name": f"gather_rows ({tag})", "route": "cuda", "source": "khronos_tpu_torch/csrc/gather.cu",
+         "replaces": "khronos_tpu/ops/pallas/gather_probe.py:32", "launches": launches["gather"],
+         "launches_per_frame": launches["gather"] / FRAMES, "match": True, "max_abs_err": b_err, "ms": k_ms,
+         "plain_ms": p_ms, "bound_ms": bytes_b / HBM_BYTES_PER_S * 1e3, "bound_us": bytes_b / HBM_BYTES_PER_S * 1e6,
+         "bound_by": "bytes", "library_ms": lib_ms, "input": f"{tag}, a slab's voxels",
+         "shape": [list(img.shape), list(idx.shape)]},
+    ]
+    for r in rows:
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms'] * 1e3:.1f} us"
+        log(f"kernel {r['name']}: bit-exact, {r['ms'] * 1e3:.2f} us on {r['shape']} (plain "
+            f"{r['plain_ms'] * 1e3:.1f} us, library {lib}), bound {r['bound_us']:.3f} us by {r['bound_by']}, "
+            f"{r['launches']} launches in {FRAMES} frames")
+    return rows
+
+
+def phase_multiprocess_path(card_name, ranks):
+    """The window over two processes (parallel/distributed.py, one gloo
+    rank a process, both on this card), against this process's one-process
+    runs on the same frames: the window at the main path's widths with
+    n_devices=2 (one slab a rank) gives, in each rank, every frame's packed
+    stats and id images, the emitted triangles (in emission order), the
+    finished tracks and the rank's slab bit for bit as the one-process
+    n_devices=2 window; A and B launched once a timed frame in each rank (its
+    own counters); run_pipeline(4) over 2 ranks x 2 slabs (the reference
+    worker's 2 processes x 2 devices) equal to the one-process
+    run_pipeline(4), bit for bit; A and B on rank 1's recorded slab inputs
+    bit for bit and timed (the kernels line's rows); ms a frame of the two
+    ranks against the one-process window (one card: the halos go through
+    the host, so no speed is asked)."""
+    from khronos_tpu_torch.parallel import workers
+
+    device, size, grid = ranks["device"], ranks["size"], ranks["grid"]
+    window_kw, pipeline_kw = (kw for _, kw in multiprocess_calls(size, grid, ranks["out_dir"]))
+    window_kw = {k: v for k, v in window_kw.items() if k != "record"}
+    one = workers.run_window(None, device=device, **window_kw)
+    one_pipe = workers.run_pipeline(None, device=device, **pipeline_kw)
+    keys = ("packed", "images", "triangles", "triangles_digest", "tracks", "tracks_digest", "dynamic_ids")
+    for r, (win, pipe) in enumerate(ranks["results"]):
+        differ = [k for k in keys if win[k] != one[k]]
+        require(not differ, f"multiprocess_path: rank {r}'s window differs from one process's in {differ}")
+        require(win["slabs"] == [r], f"multiprocess_path: rank {r} holds slabs {win['slabs']}")
+        slab = [f for f, d in win["slab_digests"][str(r)].items() if d != one["slab_digests"][str(r)][f]]
+        require(not slab, f"multiprocess_path: rank {r}'s slab differs from one process's in {slab}")
+        if device == "cuda":  # CPU tensors take the plain versions, which count nothing
+            require(win["launches"] == {"propagate": FRAMES, "gather": FRAMES},
+                    f"multiprocess_path: rank {r} launched {win['launches']} in {FRAMES} timed frames")
+        require(pipe == one_pipe, f"multiprocess_path: rank {r}'s run_pipeline(4) {pipe} != one process's {one_pipe}")
+    require(one["triangles"] > 0 and one["tracks"] > 0 and one_pipe["n_mesh_vertices"] > 0,
+            f"multiprocess_path: {one['triangles']} triangles, {one['tracks']} finished tracks, "
+            f"{one_pipe['n_mesh_vertices']} pipeline vertices")
+    ms = {f"rank {r}": win["ms_per_frame"] for r, (win, _) in enumerate(ranks["results"])}
+    result = {"ranks": MULTIPROCESS_RANKS, "backend": "gloo", "compute_mode": ranks["compute_mode"],
+              "ranks_seconds": ranks["seconds"], "ms_per_frame": {**ms, "one process": one["ms_per_frame"]},
+              "launches": {f"rank {r}": win["launches"] for r, (win, _) in enumerate(ranks["results"])},
+              "collectives_per_frame": ranks["results"][0][0]["collectives_per_frame"],
+              "gathered_bytes_per_frame": ranks["results"][0][0]["gathered_bytes_per_frame"],
+              "collective_ms_per_frame": {f"rank {r}": win["collective_ms_per_frame"]
+                                          for r, (win, _) in enumerate(ranks["results"])},
+              "triangles": one["triangles"], "finished_tracks": one["tracks"], "dynamic_ids": one["dynamic_ids"],
+              "pipeline": one_pipe, "card": card_name}
+    log(f"multiprocess_path ({card_name}): {MULTIPROCESS_RANKS} gloo ranks on one card == one process bit for bit "
+        f"({len(one['packed'])} frames' stats and id images, {one['triangles']} triangles, {one['tracks']} finished "
+        f"tracks, each rank's slab; run_pipeline(4) {one_pipe}); ms a frame "
+        + ", ".join(f"{k} {v:.2f}" for k, v in result["ms_per_frame"].items())
+        + f"; {result['collectives_per_frame']:.2f} all_gathers a timed frame, gathering "
+        f"{result['gathered_bytes_per_frame'] / 2**20:.2f} MiB, the host's ms inside them a frame "
+        + ", ".join(f"{k} {v:.2f}" for k, v in result["collective_ms_per_frame"].items()))
+    if device == "cuda":
+        rec = torch.load(ranks["results"][1][0]["recorded"]["path"])
+        lab, grow, iterations = rec["propagate"]
+        img, idx = rec["gather"]
+        rows = slab_kernel_rows("multiprocess_path, rank 1", lab.cuda(), grow.cuda(), iterations, img.cuda(),
+                                idx.cuda(), ranks["results"][1][0]["launches"])
+        for row in rows:
+            row["launches_by_rank"] = [win["launches"]["gather" if row["name"].startswith("gather") else "propagate"]
+                                       for win, _ in ranks["results"]]
+        result["kernel_rows"] = rows
+    return result
+
+
 # ---- bench_path: bench_torch.py's two modes ----
 
 BENCH_ARGV = ("--repeats", "1")  # bench_torch.py at its default widths, one timed run a mode
@@ -3138,7 +3314,8 @@ def phase_bench_path(card_name, main_path, argv=BENCH_ARGV):
     return result
 
 
-SWEEP = [(d, tx, ty) for d in (1, 2, 3, 4) for tx, ty in ((8, 8), (8, 4), (4, 8), (4, 4))]
+# kernel A's rounds a step D around csrc/propagate.cu's D = 3 at its 8x4 tile, and the other tiles at D = 3
+SWEEP = [(d, 8, 4) for d in (1, 2, 3, 4)] + [(3, tx, ty) for tx, ty in ((8, 8), (4, 8), (4, 4))]
 
 
 def phase_sweep(main):
@@ -3216,6 +3393,11 @@ def main() -> int:
             print(line, file=sys.stderr)
 
     phase_s = {}
+    # the ranks of multiprocess_path (12), before this process's first CUDA operation
+    ts = time.perf_counter()
+    ranks = start_multiprocess_ranks(card)
+    phase_s["multiprocess_ranks"] = round(time.perf_counter() - ts, 1)
+    log(f"phase multiprocess_ranks: {phase_s['multiprocess_ranks']} s")
 
     def timed(name, fn, *args):
         ts = time.perf_counter()
@@ -3257,10 +3439,13 @@ def main() -> int:
     # 11) the grid split into slabs over a device mesh, two slabs on this card
     sharding_path = timed("sharding_path", phase_sharding_path, card)
     kernels += sharding_path.pop("kernel_rows")
-    # 12) bench_torch.py's two modes at their default widths
+    # 12) the window over two processes on this card, against one process
+    multiprocess_path = timed("multiprocess_path", phase_multiprocess_path, card, ranks)
+    kernels += multiprocess_path.pop("kernel_rows")
+    # 13) bench_torch.py's two modes at their default widths
     bench_path = timed("bench_path", phase_bench_path, card, main_path)
     kernels += bench_path.pop("kernel_rows")
-    # 13) kernel A at other rounds per step and tile shapes
+    # 14) kernel A at other rounds per step and tile shapes
     sweep = timed("sweep", phase_sweep, main_path)
 
     log(json.dumps({"main_path": {k: main_path[k] for k in ("fps", "ms_per_frame", "window_ms_per_frame",
@@ -3270,7 +3455,7 @@ def main() -> int:
                     "apartment_path": apartment_path, "openset_path": openset_path, "jackal_path": jackal_path,
                     "endurance_path": endurance_path, "async_parity": async_parity,
                     "checkpoint_resume": checkpoint_resume, "sharding_path": sharding_path,
-                    "bench_path": bench_path, "propagate_sweep": sweep, "phase_s": phase_s,
+                    "multiprocess_path": multiprocess_path, "bench_path": bench_path, "propagate_sweep": sweep, "phase_s": phase_s,
                     "card": card}))
     log(f"card: {card}")
     log(json.dumps({"kernels": kernels}))

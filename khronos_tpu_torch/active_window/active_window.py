@@ -20,7 +20,9 @@ non-blocking copy into pinned memory with a CUDA event behind it
 start their body pulls, only when that copy has landed, oldest bus first; so
 in which output a finished track or a mesh delta lands follows the
 reference's schedule. On the CPU every copy is ready at once: the port then
-follows the reference's earliest schedule. `max_inflight_pulls` bounds the
+follows the reference's earliest schedule, and with `earliest_pulls` set it
+does so on the card too (each pull waited for at its first poll), so that
+runs compare bit for bit. `max_inflight_pulls` bounds the
 buses and emission rounds in flight before the oldest is consumed waiting.
 
 Object extraction runs inline when an output is built, unless
@@ -34,7 +36,11 @@ device mesh, one slab a visible card as the reference's `devices[:n]`
 (`parallel/sharding.py`): the fused step runs on every slab with
 halo exchange (cropping off), and the scroll and the mesh emission run per
 slab too; the modular path gathers the grid onto the first device for its
-stages. `n_devices=1` is the one-shard mesh.
+stages. `n_devices=1` is the one-shard mesh. With a `group`
+(`parallel/distributed.py`) the window is one rank of several processes,
+the reference's window over a global mesh: every rank runs the window on
+the same frames, with the host state, the pixel side and the pulls on its
+own device, and computes its own slabs only.
 """
 
 from __future__ import annotations
@@ -147,15 +153,23 @@ def _empty_mesh_delta():
 
 
 class ActiveWindow:
+    group = None  # the ranks' group (parallel/distributed.py); None: one process
+    # every host pull waits for itself the first time it is polled
+    # (utils/host_copy.py): outputs then do not depend on the card's timing
+    earliest_pulls = False
+
     def __init__(
-        self, config: ActiveWindowConfig, camera: Camera, label_space: LabelSpace, device=None
+        self, config: ActiveWindowConfig, camera: Camera, label_space: LabelSpace, device=None, group=None
     ):
         """device: where the volume and every frame's work live; CUDA unless
         the caller passes device="cpu" (raises when no GPU is visible). With
         n_devices >= 1 the slabs go one a card over the visible cards from
         that one on (`sharding.mesh_for`; "cuda": the current card), and the
-        pixel side stays on the first."""
+        pixel side stays on the first. group (`parallel.distributed`): this
+        window is one of the group's ranks, n_devices slabs over all of them
+        (process-major), the pixel side on this rank's device."""
         self.device = resolve_device(device)
+        self.group = group
         self.config = config
         self.camera = camera
         self.label_space = label_space
@@ -208,15 +222,18 @@ class ActiveWindow:
         self.mesh = None
         self.grid = fs.DenseGrid(shape)
         if self.config.n_devices >= 1:
-            self.mesh = sharding.mesh_for(self.config.n_devices, self.device)
-            self.device = self.mesh.devices[0]
+            self.mesh = sharding.mesh_for(self.config.n_devices, self.device, self.group)
+            self.device = self.mesh.devices[self.mesh.local[0]]
             self.grid = sharding.SlabGrid(self.mesh, shape)
+        elif self.group is not None:
+            raise ValueError("ActiveWindow: a window over several ranks needs n_devices >= 1")
 
     @property
     def devices(self):
-        """Every device the window's work runs on, the first holding the
-        pixel side: the mesh's cards, or the window's one device."""
-        return self.mesh.devices if self.mesh is not None else (self.device,)
+        """Every device this process's window work runs on, the first
+        holding the pixel side: the mesh's cards (this rank's slabs' over
+        several ranks), or the window's one device."""
+        return tuple(self.mesh.devices[i] for i in self.mesh.local) if self.mesh is not None else (self.device,)
 
     def synchronize(self) -> None:
         """Wait for the window's queued work on every card it uses."""
@@ -225,7 +242,11 @@ class ActiveWindow:
     def __getstate__(self):
         """Checkpoint support: the built step is session-local (rebuilt on
         restore), and so are the sinks and the device mesh. Host copies in
-        flight pickle as landed copies (utils/host_copy.py)."""
+        flight pickle as landed copies (utils/host_copy.py). A window over
+        several ranks has no checkpoint (its slabs live in several
+        processes)."""
+        if self.group is not None:
+            raise NotImplementedError("ActiveWindow: a checkpoint of a window over several ranks is not supported")
         state = self.__dict__.copy()
         state.pop("_fused_step", None)
         state.pop("mesh", None)
@@ -474,7 +495,7 @@ class ActiveWindow:
         metas = self._bus_metas[:BUS_META_CAPACITY]
         items = self._bus_unflushed + [e[1] for e in metas]
         buf = torch.cat([x.reshape(-1).to(torch.float32) for x in items])
-        self._bus_pending.append((len(self._bus_unflushed), metas, HostCopy(buf)))
+        self._bus_pending.append((len(self._bus_unflushed), metas, HostCopy(buf, earliest=self.earliest_pulls)))
         self._bus_unflushed = []
         self._bus_metas = self._bus_metas[BUS_META_CAPACITY:]
 
@@ -499,7 +520,7 @@ class ActiveWindow:
                 meta = arr[off : off + META_LEN]
                 off += META_LEN
                 ent[1] = meta
-                ent[0] = meshing.start_body_pull(ent[0], int(meta[0]))
+                ent[0] = meshing.start_body_pull(ent[0], int(meta[0]), self.earliest_pulls)
                 ent[3] = "body"
             self._bus_pending.popleft()
             drained += 1
@@ -584,7 +605,7 @@ class ActiveWindow:
         def one_round(own_meta_copy: bool):
             self.state, packed, meta = self.grid.extract_mesh_async(self.state, emit_mask, vol_cfg, max_cells)
             if own_meta_copy:
-                ent = [packed, HostCopy(meta), None, "meta_copy"]
+                ent = [packed, HostCopy(meta, earliest=self.earliest_pulls), None, "meta_copy"]
             else:
                 ent = [packed, meta, None, "meta_bus"]
                 self._bus_metas.append(ent)
@@ -621,7 +642,7 @@ class ActiveWindow:
                 if not forced and not ent[1].ready():
                     break
                 ent[1] = ent[1].numpy(0)
-                ent[0] = meshing.start_body_pull(ent[0], int(ent[1][0]))
+                ent[0] = meshing.start_body_pull(ent[0], int(ent[1][0]), self.earliest_pulls)
                 ent[3] = "body"
             if not forced and ent[0] is not None and not ent[0].ready():
                 break

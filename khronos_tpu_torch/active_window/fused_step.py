@@ -183,8 +183,10 @@ def make_frame_step(
     mesh (a `parallel.sharding.Mesh`): the grid is split into slabs along x,
     one per shard, and `state` is a `sharding.ShardedVolume`; cropping is off
     (as in the reference: a camera-dependent crop does not fit a static slab
-    layout). The pixel side runs once, on the mesh's first device, where the
-    images must lie; every grid operation runs on each slab (`SlabGrid`)."""
+    layout). The pixel side runs once, on the images' device (the mesh's
+    first device in one process; over several ranks, each rank's own, where
+    every rank runs it); every grid operation runs on each slab this process
+    holds (`SlabGrid`)."""
     if od_cfg is not None and not isinstance(od_cfg, (ConnectedSemanticsConfig, InstanceForwardingConfig)):
         raise NotImplementedError(f"the fused step has no branch for object detector {type(od_cfg).__name__}")
     openset = isinstance(od_cfg, InstanceForwardingConfig)

@@ -187,9 +187,11 @@ def _render(kinds, centers, halfs, labels, colors, present, rays_c, R_w_c, t_w_c
     hit_ok = (sd_final.amin(dim=0) < 5e-3) & (t_acc <= far)
     # euclidean t -> z-depth: rays_c = (x, y, 1), so unit-ray z = 1/|ray_c|.
     # XLA CPU rewrites the division into t * rsqrt(|ray_c|^2) and computes
-    # the rsqrt by a hardware estimate refined once, which is 1 ulp off the
-    # correctly rounded value for about 14% of inputs; the port takes the
-    # correctly rounded rsqrt, the nearest it can compute on every device.
+    # the rsqrt from the host's hardware estimate, refined: AVX-512's
+    # vrsqrt14ps where the host has it, AVX's vrsqrtps on an AVX2 host, so
+    # the reference's depth bits depend on the host that runs it (up to 2
+    # ulps apart on 13% of a frame's pixels between the two). The port
+    # takes the correctly rounded rsqrt, the same on every device.
     rsqrt = (1.0 / torch.sqrt(_sum_sq3(rays_c).double())).float()
     depth = torch.where(hit_ok, t_acc * rsqrt, 0.0)
     label_img = torch.where(hit_ok, labels[hit_prim], -1)

@@ -391,12 +391,12 @@ def extract_mesh_async(
     return state._replace(cell_meshed=cell_meshed), packed, meta
 
 
-def start_body_pull(packed: torch.Tensor, n_tris: int):
-    """Start the host copy of the used rows of an emission buffer: a HostCopy,
-    or None when the round emitted nothing."""
+def start_body_pull(packed: torch.Tensor, n_tris: int, earliest: bool = False):
+    """Start the host copy of the used rows of an emission buffer: a HostCopy
+    (`earliest` as HostCopy's), or None when the round emitted nothing."""
     if n_tris <= 0:
         return None
-    return HostCopy(packed[:n_tris])
+    return HostCopy(packed[:n_tris], earliest=earliest)
 
 
 def body_rows(body) -> np.ndarray:

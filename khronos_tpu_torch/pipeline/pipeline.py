@@ -88,16 +88,24 @@ class PipelineConfig:
 
 
 class KhronosPipeline:
-    def __init__(self, config: PipelineConfig, camera: Camera, device=None):
+    def __init__(self, config: PipelineConfig, camera: Camera, device=None, group=None):
         """device: where the active window, the backend's solve, the places
         layer, change detection and the reconciler's distances run; CUDA
         unless the caller passes device="cpu" (raises when no GPU is
-        visible)."""
+        visible). group (`parallel.distributed`): this pipeline is one rank
+        of several processes on the same frames (the reference's pipeline
+        over a global mesh): the window's slabs spread over the ranks, and
+        everything else runs in every rank, on the rank's device."""
         self.config = config
         self.camera = camera
         self.device = resolve_device(device)
+        if group is not None:
+            if self.device.type != group.device.type:
+                raise ValueError(f"KhronosPipeline: device {self.device} for rank {group.rank} on {group.device}")
+            self.device = group.device
         self.label_space = config.label_space.create()
-        self.active_window = ActiveWindow(config.active_window, camera, self.label_space, device=self.device)
+        self.active_window = ActiveWindow(config.active_window, camera, self.label_space, device=self.device,
+                                          group=group)
         self.backend = Backend(config.backend, device=self.device)
         if config.change_detection.verificator.max_ray_length <= 0:
             # physical plausibility: rays longer than the sensor range

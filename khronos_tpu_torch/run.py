@@ -49,7 +49,12 @@ class RunConfig:
     overwrite: bool = True
 
 
-def main(argv=None):
+def main(argv=None, group=None, earliest_pulls=False):
+    """The CLI. group (`parallel.distributed`): run as one rank of several
+    processes on the rank's device, every rank on the same frames
+    (`parallel/workers.py` starts them). earliest_pulls: the window waits
+    for each host pull at its first poll (`ActiveWindow.earliest_pulls`), so
+    that runs compare bit for bit. Neither is a flag."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--config", nargs="+", required=True, help="YAML config file(s)")
     ap.add_argument("--device", default=None, help="torch device (default: cuda)")
@@ -66,13 +71,14 @@ def main(argv=None):
     run_cfg = build(RunConfig, data.get("run", {}))
     ds_spec = dict(data.get("dataset", {"kind": "synthetic"}))
     kind = ds_spec.pop("kind", "synthetic")
-    device = resolve_device(args.device)
+    device = resolve_device(args.device) if group is None else group.device
 
     from khronos_tpu_torch.data.datasets import make_dataset
 
     dataset = make_dataset(kind, device=device, **ds_spec)
 
-    pipeline = KhronosPipeline(pipe_cfg, dataset.camera, device=device)
+    pipeline = KhronosPipeline(pipe_cfg, dataset.camera, device=device, group=group)
+    pipeline.active_window.earliest_pulls = earliest_pulls
     manager = ExperimentManager(
         ExperimentConfig(
             output_dir=run_cfg.output_dir,

@@ -11,6 +11,13 @@ ready at once.
 
 A copy pickles (for checkpoints) as its landed host arrays: pickling waits
 for it, and it restores as a copy that is already ready.
+
+A copy made with `earliest=True` waits for itself the first time it is
+polled and is then ready: the schedule the CPU gives, where every copy is
+ready at once. A window whose copies do so (`ActiveWindow.earliest_pulls`)
+consumes each pull at the first poll, so which output a finished track or a
+mesh delta lands in no longer depends on the card's timing, and two runs
+compare bit for bit.
 """
 
 from __future__ import annotations
@@ -22,9 +29,11 @@ import torch
 class HostCopy:
     """Host copies of `tensors`, in flight until `ready()`. The tensors may
     lie on several cards (a sharded window's pulls): each card's copies
-    queue on that card's current stream, with one event a card."""
+    queue on that card's current stream, with one event a card. Over
+    several ranks (`parallel/distributed.py`) a rank pulls only tensors on
+    its own card, so its events lie there."""
 
-    def __init__(self, *tensors: torch.Tensor):
+    def __init__(self, *tensors: torch.Tensor, earliest: bool = False):
         self.tag = None  # caller's label for the pull (e.g. "scroll_final")
         self.host = []
         for t in tensors:
@@ -38,8 +47,12 @@ class HostCopy:
             event = torch.cuda.Event()
             event.record(torch.cuda.current_stream(dev))  # the copies' stream on that card
             self.events.append(event)
+        self.earliest = earliest
 
     def ready(self) -> bool:
+        if self.earliest:
+            self._wait()
+            return True
         return all(e.query() for e in self.events)
 
     def _wait(self) -> None:
@@ -59,3 +72,4 @@ class HostCopy:
         self.tag = state["tag"]
         self.host = [torch.from_numpy(a) for a in state["host"]]
         self.events = []
+        self.earliest = False

@@ -17,10 +17,11 @@ t + dirs * t_acc is one fma a component; the sphere's norm reduces its squares
 from zero, fma(z, z, fma(y, y, x * x)); the box's reduction starts from
 x*x + y*y, which LLVM contracts into fma(x, x, y * y), then fma(z, z, .).
 With these the march's t_hit is bit-exact; the final depth t_hit / |ray_c|
-is compiled into t_hit * rsqrt(|ray_c|^2) with XLA's AVX-512 rsqrt14
-estimate refined by two Newton steps, which the port cannot reproduce on
-every device: it multiplies by the correctly rounded rsqrt (at most 2 ulps
-of depth apart, on about 15% of the pixels).
+is compiled into t_hit * rsqrt(|ray_c|^2) with the host's rsqrt estimate,
+refined (AVX-512's rsqrt14 on a host with AVX-512, AVX's rsqrtps when XLA
+targets AVX2: the reference's depth bits depend on the host), which the
+port cannot reproduce on every device: it multiplies by the correctly
+rounded rsqrt (at most 2 ulps of depth apart, on about 15% of the pixels).
 
 Each expression alone, bit for bit. Then inside the reference's compiled
 programs, where XLA also fuses the operations around the dots: the volume

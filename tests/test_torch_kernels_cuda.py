@@ -294,3 +294,17 @@ def test_host_copy_over_two_cards_is_ready_once_both_land(two_cards):
     torch.cuda.synchronize(second)
     assert copy.ready()
     assert np.array_equal(copy.numpy(0), a.cpu().numpy()) and np.array_equal(copy.numpy(1), b.cpu().numpy())
+
+
+def test_two_gloo_ranks_on_one_card_equal_one_process(cuda, tmp_path):
+    """tests/multihost_worker.py's step over 2 gloo ranks x 2 slabs, both
+    ranks fresh interpreters on card 0 (parallel.workers.launch), against
+    the one-process 4-slab step on the card: the whole grid, the images and
+    the stats of each step bit for bit (digests of their bytes)."""
+    from khronos_tpu_torch.parallel import workers
+
+    outs = workers.launch(2, "gloo", "sharded_step_checksums", {"n_devices": 4}, tmp_path, timeout_s=300,
+                          device="cuda")
+    one = workers.sharded_step_checksums(None, 4, "cuda")
+    assert outs == [one, one]
+    assert one["obj_sum"] > 0

@@ -67,7 +67,7 @@ def test_imports_no_jax():
         "          'eval.viewer', 'eval.ground_truth', 'eval.__main__', 'active_window.instance_forwarding',\n"
         "          'active_window.motion_detection', 'active_window.object_detection',\n"
         "          'backend.registration', 'data.rosbag2', 'pipeline.checkpoint', 'backend.distributed',\n"
-        "          'eval.visualizers', 'parallel.sharding'):\n"
+        "          'eval.visualizers', 'parallel.sharding', 'parallel.distributed', 'parallel.workers'):\n"
         "    assert 'khronos_tpu_torch.' + m in mods, m\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"
@@ -76,7 +76,7 @@ def test_imports_no_jax():
     assert res.returncode == 0, res.stderr
     pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|khronos_tpu)(\s|\.|$)", re.M)
     sources = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "bench_torch.py"] + [
-        ROOT / "scripts" / f"torch_port_{name}.py" for name in ("endurance", "sharding_cards")]
+        ROOT / "scripts" / f"torch_port_{name}.py" for name in ("endurance", "sharding_cards", "multiprocess_cards")]
     offenders = [str(p) for p in sources if pattern.search(p.read_text())]
     assert not offenders
 
@@ -163,6 +163,29 @@ def test_host_copy_on_cpu_is_ready():
     assert copy.ready()
     np.testing.assert_array_equal(copy.numpy(0), np.arange(6))
     assert copy.numpy(1).dtype == np.float32
+
+
+class _InFlight:
+    """A CUDA event's stand-in that has not completed until waited for."""
+
+    def __init__(self):
+        self.done = False
+
+    def query(self):
+        return self.done
+
+    def synchronize(self):
+        self.done = True
+
+
+@pytest.mark.parametrize("earliest", [False, True])
+def test_host_copy_earliest_waits_at_the_first_poll(earliest):
+    """A copy made with earliest=True waits for its copies the first time it
+    is polled and says it is ready; by default a poll never waits."""
+    copy = HostCopy(torch.arange(3), earliest=earliest)
+    copy.events = [_InFlight()]
+    assert copy.ready() == earliest
+    assert copy.events[0].done == earliest
 
 
 def test_chip_smoke_refuses_without_a_gpu(tmp_path):
