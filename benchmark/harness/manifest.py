@@ -1,0 +1,77 @@
+"""BENCHMARK.json and the files it names: a cell is found by its name, its
+configuration in configs/<config>.json, its traffic in traffic/<traffic>.json,
+each per-layer metric's reader in metrics/<metric>.py."""
+
+from __future__ import annotations
+
+import importlib.util
+import json
+import re
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent.parent  # benchmark/
+ROOT = HERE.parent
+NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
+UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
+BUILT_IN = ("frames_per_s", "frame_ms_p95", "setup_s")  # runner.py measures them
+FORBIDDEN = ("jax", "jaxlib", "flax", "khronos_tpu")  # top-level module names
+
+
+def forbidden_modules(modules) -> list:
+    """Loaded modules whose top-level name (before the first dot) is one of
+    FORBIDDEN, compared whole: khronos_tpu_torch is not khronos_tpu."""
+    return sorted({m for m in modules if m.split(".")[0] in FORBIDDEN})
+
+
+def load(root: Path = ROOT) -> dict:
+    with open(root / "BENCHMARK.json") as fh:
+        return json.load(fh)
+
+
+def cell(bench: dict, name: str) -> dict:
+    for w in bench["workloads"]:
+        if w["name"] == name:
+            return w
+    raise KeyError(f"no workload {name!r} in BENCHMARK.json")
+
+
+def _json(path: Path) -> dict:
+    with open(path) as fh:
+        return json.load(fh)
+
+
+def config(bench: dict, name: str, root: Path = ROOT) -> dict:
+    for c in bench["configs"]:
+        if c["name"] == name:
+            return _json(root / c["file"])
+    raise KeyError(f"no config {name!r} in BENCHMARK.json")
+
+
+def traffic(name: str, bench_dir: Path = HERE) -> dict:
+    return _json(bench_dir / "traffic" / f"{name}.json")
+
+
+def applies(metric: dict, cell_name: str) -> bool:
+    return "workloads" not in metric or cell_name in metric["workloads"]
+
+
+def metric_names(bench: dict, cell_name: str, trace: bool):
+    kind = "per_layer" if trace else "end_to_end"
+    return [m["name"] for m in bench[kind] if applies(m, cell_name)]
+
+
+def reader(name: str, bench_dir: Path = HERE):
+    """The module metrics/<name>.py, with its read(ctx) -> value or None."""
+    path = bench_dir / "metrics" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"bench_metric_{name.replace('.', '_').replace('-', '_')}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def unit(bench: dict, name: str) -> str:
+    for kind in ("end_to_end", "per_layer"):
+        for m in bench[kind]:
+            if m["name"] == name:
+                return m["unit"]
+    raise KeyError(name)
