@@ -495,7 +495,8 @@ class ActiveWindow:
         metas = self._bus_metas[:BUS_META_CAPACITY]
         items = self._bus_unflushed + [e[1] for e in metas]
         buf = torch.cat([x.reshape(-1).to(torch.float32) for x in items])
-        self._bus_pending.append((len(self._bus_unflushed), metas, HostCopy(buf, earliest=self.earliest_pulls)))
+        copy = HostCopy(buf, earliest=self.earliest_pulls, site="bus")
+        self._bus_pending.append((len(self._bus_unflushed), metas, copy))
         self._bus_unflushed = []
         self._bus_metas = self._bus_metas[BUS_META_CAPACITY:]
 
@@ -571,7 +572,8 @@ class ActiveWindow:
     def _extract_output(self, frame: FrameData) -> ActiveWindowOutput:
         # one round: leftover cells stay unmeshed and re-emit at the next
         # output; its meta rides the next bus
-        self._emit_mesh(self.grid.emission_mask(self.state, "archived"), drain=False)
+        with Timer("extract/emit"):
+            self._emit_mesh(self.grid.emission_mask(self.state, "archived"), drain=False)
         return self._build_output(frame.stamp_ns, np.asarray(frame.R_w_c), np.asarray(frame.t_w_c))
 
     def _scroll_rounds(self, shift) -> int:
@@ -605,7 +607,7 @@ class ActiveWindow:
         def one_round(own_meta_copy: bool):
             self.state, packed, meta = self.grid.extract_mesh_async(self.state, emit_mask, vol_cfg, max_cells)
             if own_meta_copy:
-                ent = [packed, HostCopy(meta, earliest=self.earliest_pulls), None, "meta_copy"]
+                ent = [packed, HostCopy(meta, earliest=self.earliest_pulls, site="mesh_meta"), None, "meta_copy"]
             else:
                 ent = [packed, meta, None, "meta_bus"]
                 self._bus_metas.append(ent)

@@ -19,7 +19,9 @@ the buffered frames live on: `_reconstruct_device` fuses the frames into a
 frames; padding frames change nothing, so only real frames are visited), and
 `_mesh_small_grid` runs marching tetrahedra over all (G-1)^3 cells with the
 active window's tables and compacts the triangles to MAX_OBJ_TRIS rows on the
-device. The host pulls the meta row first, then only the triangle rows.
+device. The host pulls the meta row first, then only the triangle rows: the
+spans `wait/extract_meta` and `wait/extract_body` (`utils/timing.py`), each
+inside the track's `object_extraction/track`.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from khronos_tpu_torch.geometry.camera import Camera, world_to_camera
 from khronos_tpu_torch.map.meshing import CORNER_OFFSETS, TET_EDGES, TET_TABLE, TETS
 from khronos_tpu_torch.ops.clusters import compact_rows
 from khronos_tpu_torch.stm.scene_graph import KhronosObject, MeshAccumulator
+from khronos_tpu_torch.utils.timing import Timer, Wait
 
 
 @register("object_extractor", "MeshObjectExtractor")
@@ -231,7 +234,8 @@ class MeshObjectExtractor:
     def extract_all(self, tracks: List[Track], frame_buffer) -> List[KhronosObject]:
         out = []
         for t in tracks:
-            obj = self.extract(t, frame_buffer)
+            with Timer("object_extraction/track"):
+                obj = self.extract(t, frame_buffer)
             if obj is not None:
                 out.append(obj)
         return out
@@ -325,11 +329,15 @@ class MeshObjectExtractor:
         packed_dev = _mesh_small_grid(tsdf, weight, origin, voxel, cfg.grid_size)
         # pull the meta row first, then ONLY the real triangle rows (the full
         # packed array is ~1.2 MB a track, mostly padding)
-        meta_row = packed_dev[-1].cpu().numpy()
+        with Wait("extract_meta", packed_dev.is_cuda):
+            meta_row = packed_dev[-1].cpu().numpy()
         n = int(meta_row[0])
-        packed = np.concatenate(
-            [packed_dev[:n].cpu().numpy(), meta_row[None]]
-        ) if n else meta_row[None]
+        if n:
+            with Wait("extract_body", packed_dev.is_cuda):
+                body = packed_dev[:n].cpu().numpy()
+            packed = np.concatenate([body, meta_row[None]])
+        else:
+            packed = meta_row[None]
         verts = packed[:n].reshape(-1, 3, 3)
         if len(verts) == 0:
             return None if cfg.only_extract_reconstructed_objects else self._bbox_only(track, bbox_min, bbox_max)

@@ -18,6 +18,10 @@ ready at once. A window whose copies do so (`ActiveWindow.earliest_pulls`)
 consumes each pull at the first poll, so which output a finished track or a
 mesh delta lands in no longer depends on the card's timing, and two runs
 compare bit for bit.
+
+A wait on a copy that has not landed is the span `wait/<site>`
+(`utils/timing.py`); a copy that has landed, or one of CPU tensors, records
+nothing.
 """
 
 from __future__ import annotations
@@ -25,16 +29,19 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from khronos_tpu_torch.utils.timing import Wait
+
 
 class HostCopy:
     """Host copies of `tensors`, in flight until `ready()`. The tensors may
     lie on several cards (a sharded window's pulls): each card's copies
     queue on that card's current stream, with one event a card. Over
     several ranks (`parallel/distributed.py`) a rank pulls only tensors on
-    its own card, so its events lie there."""
+    its own card, so its events lie there. `site` names the wait span."""
 
-    def __init__(self, *tensors: torch.Tensor, earliest: bool = False):
+    def __init__(self, *tensors: torch.Tensor, earliest: bool = False, site: str = "host_copy"):
         self.tag = None  # caller's label for the pull (e.g. "scroll_final")
+        self.site = site
         self.host = []
         for t in tensors:
             if t.is_cuda:
@@ -56,8 +63,11 @@ class HostCopy:
         return all(e.query() for e in self.events)
 
     def _wait(self) -> None:
-        for e in self.events:
-            e.synchronize()
+        if all(e.query() for e in self.events):
+            return
+        with Wait(self.site):
+            for e in self.events:
+                e.synchronize()
 
     def numpy(self, i: int) -> np.ndarray:
         """The i-th copy as numpy, waiting for it to land if needed."""
@@ -70,6 +80,7 @@ class HostCopy:
 
     def __setstate__(self, state):
         self.tag = state["tag"]
+        self.site = "host_copy"
         self.host = [torch.from_numpy(a) for a in state["host"]]
         self.events = []
         self.earliest = False
