@@ -34,7 +34,6 @@ from khronos_tpu_torch import true_div, u32_bits
 from khronos_tpu_torch.map.active_volume import VolumeConfig, VolumeState
 from khronos_tpu_torch.ops.clusters import compact_indices, compact_rows
 from khronos_tpu_torch.utils.host_copy import HostCopy
-from khronos_tpu_torch.utils.timing import Wait
 
 # --- cube corners: c0..c7; tets around the c0-c6 diagonal -------------------
 CORNER_OFFSETS = np.array(
@@ -153,7 +152,7 @@ def _extract_device(
 ):
     """One emission round on the device: (cell_meshed', packed [cap, 12]
     int32 words, meta f32 [9] = n_tris, n_want, n_emitted, t_base, tick,
-    qscale, base xyz). The host waits for the card in `mark_meshed` only."""
+    qscale, base xyz). No host sync."""
     X, Y, Z = state.tsdf.shape
     cell_ids, n_want = select_cells(state, emit_mask, max_cells)
     safe_ids, (ii, jj, kk) = cell_corners(cell_ids, Y - 1, Z - 1)
@@ -331,19 +330,15 @@ def mark_meshed(cell_meshed: torch.Tensor, cx: int, ids: torch.Tensor, done: tor
     slot aliasing it, in slot order: True if that slot emitted it, else its
     old value (the padding slots alias it).
 
-    On the card the host waits twice: the written scalar is copied to the
-    card (`wait/mark_meshed`), and the 0-dim slot index is read back
-    (`wait/mark_meshed_alias`)."""
+    No host sync: the written flag is a kernel argument (`index_fill_`), and
+    the aliasing slot's flag is gathered on the card."""
     CY, CZ = cell_meshed.shape[1] - 1, cell_meshed.shape[2] - 1
     n_cells = cx * CY * CZ
     meshed_flat = torch.cat([cell_meshed[:cx, :-1, :-1].reshape(-1), done.new_zeros(1)])
-    on_card = cell_meshed.is_cuda
-    with Wait("mark_meshed", on_card):
-        meshed_flat[torch.where(done & (ids != 0) if zero_alias else done, ids, n_cells)] = True
+    meshed_flat.index_fill_(0, torch.where(done & (ids != 0) if zero_alias else done, ids, n_cells), True)
     if zero_alias:
         last = torch.where(ids == 0, torch.arange(ids.shape[0], device=ids.device), -1).max()
-        with Wait("mark_meshed_alias", on_card):
-            meshed_flat[0] |= done[last.clamp_min(0)] & (last >= 0)
+        meshed_flat[:1] |= done.gather(0, last.clamp_min(0).view(1)) & (last >= 0)
     out = cell_meshed.clone()
     out[:cx, :-1, :-1] = meshed_flat[:n_cells].view(cx, CY, CZ)
     return out

@@ -10,7 +10,10 @@ split into their parts: the fused step, the pulls, the output's emission
 round (`extract/emit`), its pull consumption, its inline object extraction
 (`object_extraction/track`), the rest of the output span, and the host's
 waits (`wait/<site>`). For each part it gives the 95th percentile of the
-frames' time with that part taken out, beside the percentile as it is.
+frames' time with that part taken out, beside the percentile as it is. It
+also counts, at each output once its pulls are consumed, the emission rounds
+of earlier frames still in flight (their copies not landed yet), as
+`earlier_rounds_in_flight_at_outputs` (count: outputs).
 
     python3 scripts/torch_port_output_frames.py --workload office.window.r4 --seed 7   # on the card
     python3 scripts/torch_port_output_frames.py --workload office.window.r4 --device cpu --tiny
@@ -43,17 +46,52 @@ PARTS = ("active_window/scroll", "active_window/fused_step", "active_window/adva
 
 def save_samples_at_window_end():
     """Injected into each worker: its one `stats()` call (at the window's
-    end) first saves every sample under $KHRONOS_SPAN_DUMP_DIR/pid<pid>."""
+    end) first saves every sample under $KHRONOS_SPAN_DUMP_DIR/pid<pid>,
+    with `in_flight.json`: at each output, once `extract/consume_pulls` has
+    run, the frame's start and the emission rounds still pending that were
+    dispatched before the frame (an earlier output's or scroll's round whose
+    copies had not landed)."""
+    from khronos_tpu_torch.active_window.active_window import ActiveWindow
     from khronos_tpu_torch.utils.timing import TimingRecorder
 
-    stats = TimingRecorder.stats
+    stats, spin, emit, build = (TimingRecorder.stats, ActiveWindow.spin_once, ActiveWindow._emit_mesh,
+                                ActiveWindow._build_output)
+    frame_start, born, in_flight = [0], {}, []
+
+    def spin_once(self, *args, **kwargs):
+        frame_start[0] = time.perf_counter_ns()
+        return spin(self, *args, **kwargs)
+
+    def emit_mesh(self, *args, **kwargs):
+        emit(self, *args, **kwargs)
+        now = time.perf_counter_ns()
+        kept = {id(e): born.get(id(e), now) for e in self._pending_mesh_dev}
+        born.clear()
+        born.update(kept)
+
+    def build_output(self, *args, **kwargs):
+        out = build(self, *args, **kwargs)
+        in_flight.append((frame_start[0], sum(born.get(id(e), 0) < frame_start[0] for e in self._pending_mesh_dev)))
+        return out
 
     def save_then_stats(self):
         TimingRecorder.stats = stats
-        self.save(os.path.join(os.environ[DUMP_ENV], f"pid{os.getpid()}"))
+        directory = os.path.join(os.environ[DUMP_ENV], f"pid{os.getpid()}")
+        self.save(directory)
+        with open(os.path.join(directory, "in_flight.json"), "w") as fh:
+            json.dump(in_flight, fh)
         return stats(self)
 
+    ActiveWindow.spin_once, ActiveWindow._emit_mesh, ActiveWindow._build_output = spin_once, emit_mesh, build_output
     TimingRecorder.stats = save_then_stats
+
+
+def in_flight_at_outputs(directory: str, frames):
+    """The counts of `in_flight.json` at the outputs inside the saved frames."""
+    with open(os.path.join(directory, "in_flight.json")) as fh:
+        rows = json.load(fh)
+    lo, hi = frames[0]["start"], frames[-1]["end"]
+    return [n for start, n in rows if lo <= start <= hi]
 
 
 def load(directory: str):
@@ -169,9 +207,12 @@ def main(argv=None) -> int:
     res = runner.run(cell, cfg, traffic, args.seed, args.seconds, False, args.device, t_process, names, {},
                      cfg["check_limits"], cfg["check_minimums"],
                      inject="torch_port_output_frames:save_samples_at_window_end")
-    robots = [frames_of(load(os.path.join(dump, d))) for d in sorted(os.listdir(dump))]
+    dirs = [os.path.join(dump, d) for d in sorted(os.listdir(dump))]
+    robots = [frames_of(load(d)) for d in dirs]
+    pending = [n for d, r in zip(dirs, robots) for n in in_flight_at_outputs(d, r)]
     out = dict(workload=args.workload, seed=args.seed, correct=res.correct, metrics=res.metrics,
                all_robots=split([f for r in robots for f in r]), robots=[split(r) for r in robots])
+    out["all_robots"]["earlier_rounds_in_flight_at_outputs"] = {str(k): pending.count(k) for k in sorted(set(pending))}
     shutil.rmtree(dump, ignore_errors=True)
     with open(os.path.join(os.path.abspath(args.out), args.workload + ".json"), "w") as fh:
         json.dump(out, fh, indent=1)

@@ -181,3 +181,53 @@ def test_cell_origin_write_back_matches_reference():
         assert float(np.asarray(jmeta)[2]) == float(tmeta[2]) == 1.0  # one cell emitted
         np.testing.assert_array_equal(np.asarray(jcm), tcm.numpy(), err_msg=f"max_cells {max_cells}")
         assert bool(tcm[0, 0, 0]) == origin_meshed
+
+
+def _mark_meshed_loop(cell_meshed, cx, ids, done, zero_alias):
+    """The round's write-back as a serial scatter in slot order (the
+    reference's `at[...].set(where(done, True, old))` on the CPU): with
+    zero_alias every slot writes its cell, True if done else the old value;
+    without it only the done slots write. Slots outside the first cx
+    x-planes are dropped."""
+    cm = cell_meshed.numpy().copy()
+    CY, CZ = cm.shape[1] - 1, cm.shape[2] - 1
+    old = cm[:cx, :-1, :-1].reshape(-1).copy()
+    flat = old.copy()
+    for cell, d in zip(ids.tolist(), done.tolist()):
+        if 0 <= cell < flat.size and (d or zero_alias):
+            flat[cell] = True if d else old[cell]
+    cm[:cx, :-1, :-1] = flat.reshape(cx, CY, CZ)
+    return cm
+
+
+# (cx, slot cell ids, done, zero_alias, old flag of cell (0, 0, 0)) on a
+# [6, 5, 4] flag grid ([5, 4, 3] cells); a cell of id 0 in a padding slot
+# is the alias every padding slot writes
+MARK_CASES = {
+    "all_padding": (5, [0] * 6, [False] * 6, True, True),
+    "no_alias_slot": (5, [4, 9, 13], [True, True, False], True, False),
+    "alias_emitted": (5, [0, 4, 9, 13], [True, True, False, True], True, False),
+    "alias_not_emitted": (5, [0, 4, 9], [False, True, True], True, False),
+    "alias_not_emitted_was_meshed": (5, [0, 4, 9, 0], [False, True, True, False], True, True),
+    "last_alias_not_done": (5, [0, 4, 0, 0], [True, True, False, False], True, False),
+    "no_zero_alias": (5, [0, 7, 30, -20, 100, 0], [True, True, False, False, False, False], False, False),
+    "slab_cx": (3, [0, 5, 35, 36, 50, 0, 0], [True, True, True, False, False, False, False], True, False),
+    "slab_cx_no_zero_alias": (3, [2, 35, -12, -1, 40], [True, True, False, False, False], False, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MARK_CASES))
+def test_mark_meshed_matches_slot_loop(case):
+    """mark_meshed equals the serial slot-order write-back: the padding
+    slots, no slot on cell (0, 0, 0), the alias slot of cell (0, 0, 0) emitted or not and followed by
+    padding, the sharded slabs other than slab 0 (no alias rule) and a slab
+    extended by its neighbour's plane (cx below the grid's cells)."""
+    cx, ids, done, zero_alias, origin_meshed = MARK_CASES[case]
+    rng = np.random.default_rng(sorted(MARK_CASES).index(case))
+    cell_meshed = torch.from_numpy(rng.random((6, 5, 4)) < 0.3)
+    cell_meshed[0, 0, 0] = origin_meshed
+    ids = torch.tensor(ids, dtype=torch.int64)
+    done = torch.tensor(done)
+    want = _mark_meshed_loop(cell_meshed, cx, ids, done, zero_alias)
+    got = tm.mark_meshed(cell_meshed, cx, ids, done, zero_alias=zero_alias)
+    np.testing.assert_array_equal(got.numpy(), want)
