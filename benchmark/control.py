@@ -35,13 +35,14 @@ def main(argv=None) -> int:
     bench = manifest.load(ROOT)
     cell = manifest.cell(bench, args.workload)
     cfg = manifest.config(bench, cell["config"], ROOT)
+    drv = manifest.driver(manifest.driver_path(cfg))
     traffic = manifest.traffic(cell["traffic"])
     for seed in args.seeds:
         res = runner.run(cell, cfg, traffic, seed, args.seconds, False, "cuda:0", time.perf_counter(),
                          ["frames_per_s"], {}, cfg["check_limits"], cfg["check_minimums"], control=True)
         print(json.dumps({"workload": cell["name"], "seed": seed, "correct": res.correct,
-                          "frames_per_s": res.metrics.get("frames_per_s"), "sound": runner.worst_of(res.rows),
-                          "control": runner.worst_of(res.control_rows), "rows": res.rows,
+                          "frames_per_s": res.metrics.get("frames_per_s"), "sound": drv.worst(res.rows),
+                          "control": drv.worst(res.control_rows), "rows": res.rows,
                           "control_rows": res.control_rows}), flush=True)
     return 0
 

@@ -1,12 +1,15 @@
 """BENCHMARK.json and the files it names: a cell is found by its name, its
-configuration in configs/<config>.json, its traffic in traffic/<traffic>.json,
-each per-layer metric's reader in metrics/<metric>.py."""
+configuration in configs/<config>.json, the configuration's driver (what
+its robots run and how the check judges them) in drivers/<driver>.py, its
+traffic in traffic/<traffic>.json, each per-layer metric's reader in
+metrics/<metric>.py."""
 
 from __future__ import annotations
 
 import importlib.util
 import json
 import re
+import sys
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent.parent  # benchmark/
@@ -60,13 +63,33 @@ def metric_names(bench: dict, cell_name: str, trace: bool):
     return [m["name"] for m in bench[kind] if applies(m, cell_name)]
 
 
-def reader(name: str, bench_dir: Path = HERE):
-    """The module metrics/<name>.py, with its read(ctx) -> value or None."""
-    path = bench_dir / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(f"bench_metric_{name.replace('.', '_').replace('-', '_')}", path)
+def _module(prefix: str, path: Path):
+    name = prefix + path.stem.replace(".", "_").replace("-", "_")
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod  # a dataclass in it looks its module up there
     spec.loader.exec_module(mod)
     return mod
+
+
+def reader(name: str, bench_dir: Path = HERE):
+    """The module metrics/<name>.py, with its read(ctx) -> value or None."""
+    return _module("bench_metric_", bench_dir / "metrics" / f"{name}.py")
+
+
+def driver_path(cfg: dict, bench_dir: Path = HERE) -> Path:
+    """drivers/<driver>.py of a configuration, which names its driver under
+    "driver"; there is no default."""
+    name = cfg.get("driver")
+    path = bench_dir / "drivers" / f"{name}.py"
+    if not isinstance(name, str) or not NAME.match(name) or not path.is_file():
+        raise ValueError(f"configuration {cfg.get('name')!r} names the driver {name!r}: no file {path}")
+    return path
+
+
+def driver(path) -> object:
+    """The driver module at `path` (drivers/window.py says what it defines)."""
+    return _module("bench_driver_", Path(path))
 
 
 def unit(bench: dict, name: str) -> str:

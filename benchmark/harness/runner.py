@@ -2,12 +2,14 @@
 common release, the window, the merged trace, the check.
 
 Each robot is its own process with its own CUDA context and its own map,
-as each robot's Khronos would be on a base-station card (`worker.py`). The
-parent renders nothing and touches no device: it starts the workers, waits
-until every one has set up, releases them together, and ends the window
-when the last of them has synchronised its device work. The loop is
-closed: a robot's next frame goes in when its previous call has returned,
-a bag replayed as fast as the system takes it.
+as each robot's Khronos would be on a base-station card (`worker.py`);
+the configuration's driver says what a robot runs and how its captures
+are judged (`drivers/window.py`). The parent renders nothing and touches
+no device: it starts the workers, waits until every one has set up,
+releases them together, and ends the window when the last of them has
+synchronised its device work. The loop is closed: a robot's next frame
+goes in when its previous call has returned, a bag replayed as fast as the
+system takes it.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from harness import entry
+from harness.manifest import HERE, driver, driver_path
 
 READY_S = 1100.0  # a checkout's first run builds the kernels
 REPLY_S = 300.0
@@ -39,18 +42,6 @@ class Result:
     notes: List[str] = dataclasses.field(default_factory=list)
     control_rows: Optional[List[Dict]] = None
     bad_modules: List[str] = dataclasses.field(default_factory=list)
-
-
-MISMATCH = ("volume_mismatch", "id_mismatch", "cluster_mismatch", "mesh_mismatch", "scroll_mismatch")
-
-
-def worst_of(rows: List[Dict]) -> Dict[str, float]:
-    """The check's numbers over the captures' rows: each mismatch at its
-    worst, and the coverage counts."""
-    out = {k: max((r[k] for r in rows if k in r), default=0.0) for k in MISMATCH}
-    out["frames_with_motion"] = sum(1 for r in rows if r.get("dynamic_px", 0) > 0)
-    out["mesh_triangles"] = sum(r.get("mesh_triangles", 0) for r in rows)
-    return out
 
 
 def percentile(xs: List[float], q: float) -> float:
@@ -129,13 +120,14 @@ class Merged:
 
 def merge_spans(per_robot: List[List[Dict]]) -> Dict[str, Dict]:
     """The program's span rows of every robot, one row a name: count, total
-    and mean seconds."""
+    and mean seconds, and the seconds of every sample (robot after robot)."""
     out: Dict[str, Dict] = {}
     for rows in per_robot:
         for row in rows:
-            m = out.setdefault(row["name"], {"name": row["name"], "n_samples": 0, "total_s": 0.0})
+            m = out.setdefault(row["name"], {"name": row["name"], "n_samples": 0, "total_s": 0.0, "seconds": []})
             m["n_samples"] += row["n_samples"]
             m["total_s"] += row["total_s"]
+            m["seconds"] += row["seconds"]
     for m in out.values():
         m["mean_s"] = m["total_s"] / max(1, m["n_samples"])
     return out
@@ -166,12 +158,20 @@ def _recv(conn, proc, timeout: float, what: str):
 
 def run(cell: dict, cfg: dict, traffic: dict, seed: int, seconds: float, trace: bool, device: str,
         t_process: float, metric_names: List[str], readers: Dict, limits: Dict[str, float],
-        minimums: Dict[str, float], inject: Optional[str] = None, control: bool = False) -> Result:
-    """One run. device: "cuda:0" or "cpu"; t_process: the perf_counter
-    reading at process start; limits: the largest mismatch the check
-    accepts; minimums: the coverage it needs; inject: "module:function"
-    that every worker calls first (a planted fault); control: also judge
-    the reference in bfloat16 in the program's place."""
+        minimums: Dict[str, float], inject: Optional[str] = None, control: bool = False,
+        bench_dir=HERE) -> Result:
+    """One run, driven by the configuration's driver (drivers/<driver>.py
+    under bench_dir), which the workers load too. device: "cuda:0" or "cpu";
+    t_process: the perf_counter reading at process start; limits: the
+    largest accepted value of each number that the driver compares;
+    minimums: the coverage it needs; inject: "module:function" that every
+    worker calls first (a planted fault); control: also judge the reference
+    in bfloat16 in the program's place."""
+    driver_file = driver_path(cfg, bench_dir)
+    drv = driver(driver_file)
+    unknown = sorted((set(limits) - set(drv.LIMITS)) | (set(minimums) - set(drv.MINIMUMS)))
+    if unknown:
+        raise ValueError(f"the driver {driver_file} has no check numbers {unknown}")
     # the workers fork from a server that has imported torch and the harness once; this process loads neither
     ctx = multiprocessing.get_context("forkserver")
     ctx.set_forkserver_preload(["harness.worker"])
@@ -181,8 +181,9 @@ def run(cell: dict, cfg: dict, traffic: dict, seed: int, seconds: float, trace: 
     try:
         for r in range(n):
             parent, child = ctx.Pipe()
-            spec = dict(cfg=cfg, traffic=traffic, seed=seed, robot=r, device=device, trace=trace, inject=inject,
-                        control=control, threads=traffic.get("threads", 2), chips=cell["chips"])
+            spec = dict(cfg=cfg, driver=str(driver_file), traffic=traffic, seed=seed, robot=r, device=device,
+                        trace=trace, inject=inject, control=control, threads=traffic.get("threads", 2),
+                        chips=cell["chips"])
             p = ctx.Process(target=entry.main, args=(child, spec), name=f"robot{r}", daemon=True)
             p.start()
             child.close()
@@ -249,8 +250,8 @@ def run(cell: dict, cfg: dict, traffic: dict, seed: int, seconds: float, trace: 
 
     # ---------------- the check, made in each worker once its window closed
     rows = [row for c in checked for row in c["rows"]]
-    worst = worst_of(rows)
-    want = n * (1 + int(traffic["step_checks"]) + 2)  # first frame, window frames, a mesh round, a scroll
+    worst = drv.worst(rows)
+    want = n * drv.captures(traffic)
     ok = failed == 0 and len(rows) == want
     ok = ok and all(worst[k] <= v for k, v in limits.items()) and all(worst[k] >= v for k, v in minimums.items())
     checked_nums = {k: {"value": worst[k], "limit": v} for k, v in limits.items()}

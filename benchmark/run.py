@@ -6,10 +6,11 @@ Runs from the root of a checkout on a machine with an NVIDIA GPU. Prints one
 JSON line on standard output (the cell's end-to-end metrics with --trace 0,
 its per-layer metrics with --trace 1), and the numbers the check compared,
 each beside its limit, as the last lines on standard error. Each robot of the
-cell runs in a worker process of its own on the card (harness/runner.py).
-Exits non-zero with no result when no card is visible, when the program is
-missing, when a worker fails, or when the port pulled in JAX or the JAX
-package in this process or in a worker.
+cell runs in a worker process of its own on the card (harness/runner.py),
+driven by its configuration's driver (drivers/<driver>.py). Exits non-zero
+with no result when no card is visible, when the program is missing, when
+the configuration names no driver, when a worker fails, or when the port
+pulled in JAX or the JAX package in this process or in a worker.
 """
 
 from __future__ import annotations

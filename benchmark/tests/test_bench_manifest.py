@@ -5,7 +5,7 @@ import re
 
 import pytest
 
-from harness import manifest, runner
+from harness import manifest
 
 BENCH = manifest.load()
 METRICS = BENCH["end_to_end"] + BENCH["per_layer"]
@@ -49,11 +49,21 @@ def test_every_configuration_has_a_cell_and_its_files():
         assert cfg["name"] == c["name"] and cfg["source"]
         for key in c["reduced"]:
             assert key in cfg and key in cfg["assumed"], key
-        assert set(cfg["check_limits"]) <= set(runner.MISMATCH)
-        assert set(cfg["check_minimums"]) <= {"frames_with_motion", "mesh_triangles"}
+        path = manifest.driver_path(cfg)
+        assert path.is_file()
+        drv = manifest.driver(path)
+        assert set(cfg["check_limits"]) <= set(drv.LIMITS)
+        assert set(cfg["check_minimums"]) <= set(drv.MINIMUMS)
     for w in BENCH["workloads"]:
         assert manifest.traffic(w["traffic"])["robots"] >= 1
         assert w["chips"] == 1
+
+
+@pytest.mark.parametrize("driver", [None, "nosuch", "../harness/runner"])
+def test_a_configuration_without_a_known_driver_is_refused(driver):
+    cfg = {"name": "c"} if driver is None else {"name": "c", "driver": driver}
+    with pytest.raises(ValueError, match=r"drivers/"):
+        manifest.driver_path(cfg)
 
 
 @pytest.mark.parametrize("name", [m["name"] for m in BENCH["per_layer"]])
@@ -65,6 +75,8 @@ def test_bounds_and_run_length():
     for m in BENCH["end_to_end"]:
         assert m["source"] in ("host_clock", "device_trace")
         assert 0.01 <= m["bound"] <= 0.25
+    # no more than eight times the widest spread of frames_per_s's runs on the H100 (PERF.md, section 2)
+    assert next(m for m in BENCH["end_to_end"] if m["name"] == "frames_per_s")["bound"] <= 0.083
     assert 1 <= BENCH["run_seconds"] <= 51
     assert len(json.dumps(BENCH)) < 64 * 1024
     for w in BENCH["workloads"]:

@@ -17,6 +17,7 @@ def test_the_harness_and_the_program_it_drives_load_no_jax():
     code = (
         "import sys; sys.path[:0] = [%r, %r];"
         "from harness import runner, check, reference, worker, manifest, roofline, scene;"
+        "[manifest.driver(p) for p in sorted((manifest.HERE / 'drivers').glob('*.py'))];"
         "from khronos_tpu_torch.active_window.active_window import ActiveWindow;"
         "from khronos_tpu_torch.ops import gather, propagate;"
         "print(worker.forbidden_modules(sys.modules))"
@@ -32,3 +33,15 @@ def test_the_reference_loads_nothing_of_the_program():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+def test_the_parent_loads_its_drivers_without_torch():
+    """A run's parent process loads each cell's driver for its count of
+    captures and its check's numbers; torch, which costs seconds of set-up,
+    loads only in the workers."""
+    code = ("import sys; sys.path[:0] = [%r]; from harness import manifest, runner;"
+            "b = manifest.load(); [manifest.driver(manifest.driver_path(manifest.config(b, c['name'])))"
+            " for c in b['configs']]; print('torch' in sys.modules)") % str(HERE)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "False"

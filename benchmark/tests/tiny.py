@@ -31,4 +31,4 @@ def run_tiny(name: str, trace: bool = False, seed: int = 2**31 + 5, seconds: flo
     names = manifest.metric_names(bench, name, trace)
     readers = {n: manifest.reader(n, bench_dir) for n in names if n not in manifest.BUILT_IN}
     return runner.run(cell, cfg, traffic, seed, seconds, trace, "cpu", time.perf_counter(), names, readers,
-                      cfg["check_limits"], cfg["check_minimums"], **kw), cfg
+                      cfg["check_limits"], cfg["check_minimums"], bench_dir=bench_dir, **kw), cfg
